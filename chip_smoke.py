@@ -12,6 +12,9 @@ line):
             shard, on a star-graph hub that needs row splitting, and on an
             empty shard.  min/max must match bitwise; sum within
             rtol=1e-4, atol=1e-5 (the reference's own kernel tolerance).
+            The lane kernels (3, 8 and 32 lanes) also match the
+            single-lane kernels on each message row bitwise, and padding
+            lanes of a ragged launch are 0.
             A small engine run of the ``cuda`` backend is held against the
             ``numpy`` oracle (bitwise for min/max programs).
 3. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
@@ -22,18 +25,32 @@ line):
             backend ``torch`` on the card (min/max bitwise, PageRank within
             rtol=1e-4, atol=1e-9).  The kernels' launch counters must equal
             the executor's dispatches.
-4. timing   each kernel, its plain version and a one-call library yardstick
+4. serve    the serving path on the same store: ``GraphService`` with
+            backend ``cuda``, device_resident=True, batch_shards=4,
+            max_lanes=16, max_groups=2 answers 32 BFS/SSSP/PPR queries
+            (max_iters=20) in one fusion set through the ragged lane
+            kernels; a ``ragged=False`` service on the same engine answers
+            them through the lane kernel, bitwise the same; one query per
+            program equals its solo ``VSWEngine.run`` bitwise; a service
+            with device_resident=False answers 4 queries (max_iters=3)
+            from the store; a ``torch`` backend service agrees (BFS/SSSP
+            bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
+            must equal the sweeps' dispatches, and the service's metrics
+            must show no conservation violation.
+5. timing   each kernel, its plain version and a one-call library yardstick
             timed with CUDA events, L2 flushed before each call, on the
-            main path's first batch of shards,
-            beside its bound: the bytes the function must move over
-            3.35 TB/s.  For the partials that is the whole mask plane, the
-            32 B sectors of idx that hold valid slots, the message sectors
-            they gather, tile_window and the output (see spmv_ell.cu).
-5. trace    (diagnostic: a profiler error leaves "not measured" and does
-            not fail the run) one resident
-            PageRank run of 3 iterations under torch.profiler: each
-            kernel's device time as the engine launches it, beside the
-            engine's kernel_s, and the card's busy share of the run.
+            main path's first batch of shards (the lane kernels at 16 and
+            32 lanes), beside its bound: the bytes the function must move
+            over 3.35 TB/s.  For the partials that is the whole mask plane,
+            the 32 B sectors of idx that hold valid slots, the message
+            sectors they gather, tile_window and the output (see
+            spmv_ell.cu).
+6. trace    (diagnostic: a profiler error leaves "not measured" and does
+            not fail the run) one resident PageRank run of 3 iterations and
+            one resident fusion set of 32 queries (max_iters=5) under
+            torch.profiler: each kernel's device time as the engine
+            launches it, beside the engine's kernel_s, and the card's busy
+            share of the run.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Details go to
@@ -55,8 +72,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-5  # kernel vs plain, sum combine
 PR_RTOL, PR_ATOL = 1e-4, 1e-9  # engine cuda vs torch, PageRank values
+SERVE_QUERIES, SERVE_ITERS = 32, 20
 SLEEP_CYCLES = 100_000_000  # about 50 ms of card time ahead of timed calls
 L2_FLUSH_BYTES = 256 << 20  # written before each timed call; the L2 holds 50 MB
+COMBINES = ("sum", "min", "max")
+#: kernel -> the TPU kernel (or XLA step) it replaces, and the shape of the
+#: timing phase that stands for it in the kernels line
+KERNELS = {
+    "ell_partials_masked": ("src/repro/kernels/spmv_ell/kernel.py:63", ""),
+    "segment_combine": ("src/repro/kernels/spmv_ell/ops.py:40", ""),
+    "ell_partials_lanes": ("src/repro/kernels/spmv_ell/ops.py:72", " L=16"),
+    "ell_partials_ragged": ("src/repro/kernels/spmv_ell/kernel.py:123", " L=32"),
+    "segment_combine_lanes": ("src/repro/kernels/spmv_ell/ops.py:301", " L=32"),
+}
 
 
 def parse_args(argv):
@@ -77,9 +105,10 @@ class Smoke:
         self.args = args
         self.failures = []
         self.report = {"phases": {}}
-        self.errs = {"ell_partials_masked": 0.0, "segment_combine": 0.0}
-        self.launches = {"ell_partials_masked": 0, "segment_combine": 0}
+        self.errs = dict.fromkeys(KERNELS, 0.0)
+        self.launches = dict.fromkeys(KERNELS, 0)
         self.l2_flush = None
+        self.serve_engine = None
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -197,6 +226,7 @@ class Smoke:
                 e2 = self.compare("segment_combine", acc, acc_plain, combine, where)
                 print(f"  {where:26s} {combine}: n_ell={dell.n_ell} "
                       f"rows={dell.rows} err partials={e1:.3g} combine={e2:.3g}")
+            self.lane_checks(K, dell, rng, where)
         # the star hub's row 0 gathers every spoke
         star = cases[1]
         ell = ell_to_device(csr_to_ell(star[1], star[2]), dev)
@@ -207,6 +237,60 @@ class Smoke:
             ell.perm, ell.row_ptr, "sum")
         if float(hub[0]) != star[2] - 1 or float(hub[1:].abs().max()) != 0.0:
             raise AssertionError(f"star hub sum {float(hub[0])} != {star[2] - 1}")
+
+    def compare_lanes(self, name, got, want, combines, where):
+        """Row-by-row :meth:`compare` with each lane's combine; a padding
+        lane (combine None) must be 0."""
+        for l, c in enumerate(combines):
+            if c is None:
+                if self.torch.count_nonzero(got[l]):
+                    raise AssertionError(f"{name} {where}: padding lane {l} not 0")
+            else:
+                self.compare(name, got[l], want[l], c, where)
+
+    def lane_checks(self, K, dell, rng, where):
+        """The lane kernels against the single-lane kernels (bitwise, row
+        by row) and against their plain versions."""
+        import numpy as np
+        torch = self.torch
+        n_pad = dell.num_windows * dell.window
+        planes = ([dell.idx], [dell.mask], [dell.tile_window])
+        seg = ([dell.perm], [dell.row_ptr])
+        kw = dict(window=dell.window, tr=dell.tr)
+        for n_lanes in (3, 8, 32):
+            x = rng.random((n_lanes, n_pad)).astype(np.float32)
+            x[rng.random(x.shape) < 0.1] = np.inf
+            msgs = torch.from_numpy(x).to("cuda")
+            for combine in ("sum", "min"):
+                part = K.ell_partials_lanes(*planes, msgs, combine=combine, **kw)
+                one = torch.stack([K.ell_partials_masked(*planes, msgs[l],
+                                                         combine=combine, **kw)
+                                   for l in range(n_lanes)])
+                self.compare_lanes("ell_partials_lanes", part, K.ell_partials_lanes_plain(
+                    *planes, msgs, combine=combine, **kw), [combine] * n_lanes, where)
+                acc = K.segment_combine_lanes(part, *seg, (combine,))
+                one_acc = torch.stack([K.segment_combine(part[l].contiguous(), *seg, combine)
+                                       for l in range(n_lanes)])
+                if not (torch.equal(part, one) and torch.equal(acc, one_acc)):
+                    raise AssertionError(f"lanes {where} {combine}: a lane is not "
+                                         f"bitwise its single-lane launch")
+            # ragged: three arms cycling over the lanes, the last lane padding
+            arms = ("min", "sum", "max")
+            ids = [l % 3 for l in range(n_lanes - 1)] + [len(arms)]
+            cids = torch.tensor(ids, dtype=torch.int32, device="cuda")
+            lane_c = [arms[i] if i < len(arms) else None for i in ids]
+            part = K.ell_partials_ragged(*planes, cids, msgs, combines=arms, **kw)
+            self.compare_lanes("ell_partials_ragged", part, K.ell_partials_ragged_plain(
+                *planes, cids, msgs, combines=arms, **kw), lane_c, where)
+            acc = K.segment_combine_lanes(part, *seg, arms, cids)
+            self.compare_lanes("segment_combine_lanes", acc, K.segment_combine_lanes_plain(
+                part, *seg, arms, cids), lane_c, where)
+            for l, c in enumerate(lane_c[:-1]):
+                if not torch.equal(part[l], K.ell_partials_masked(
+                        *planes, msgs[l], combine=c, **kw)):
+                    raise AssertionError(f"ragged {where}: lane {l} is not "
+                                         f"bitwise its single-lane launch")
+        print(f"  {where:26s} lanes 3/8/32: == single-lane launches bitwise")
 
     def small_engine(self):
         """cuda backend vs the numpy oracle on a small graph."""
@@ -331,6 +415,137 @@ class Smoke:
             if v.shape != (a.vertices,) or not np.all(np.isfinite(v) | (v == np.inf)):
                 raise AssertionError(f"{key}: wrong shape, NaN or -inf in values")
 
+    def serve(self):
+        """The serving path at full size: see the module docstring."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import ShardStore, VSWEngine, apps
+        from repro_torch.kernels.spmv_ell import kernel as K
+        from repro_torch.serve import GraphService
+
+        a = self.args
+        meta = ShardStore(self.root).read_meta()
+        rng = np.random.default_rng(a.seed)
+        srcs = rng.choice(np.flatnonzero(meta.out_deg > 0), size=SERVE_QUERIES,
+                          replace=False)
+        progs = ("bfs", "sssp", "ppr")  # examples/serve_quickstart.py's mix
+        queries = [(progs[i % 3], int(v)) for i, v in enumerate(srcs)]
+        self.queries = queries
+        lanes_k = ("ell_partials_ragged", "ell_partials_lanes", "segment_combine_lanes")
+        common = dict(batch_shards=4, max_lanes=16, max_groups=2)
+        eng_kw = dict(device="cuda", prefetch_depth=2)
+        rep = self.report["serve"] = {"queries": queries, "runs": {}}
+
+        def drive(label, svc, qs, iters, ragged):
+            for n in lanes_k:
+                getattr(K, n).launches = 0
+            ctr = lambda k: int(svc.metrics.counter(f"sweep.{k}").value)
+            c0 = {k: ctr(k) for k in ("dispatches", "ragged_dispatches", "batches")}
+            sweeps0 = svc.stats()["sweeps"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with svc.submit_batch():
+                futs = [svc.submit(p, v, max_iters=iters) for p, v in qs]
+            res = [f.result(timeout=1200) for f in futs]
+            wall = time.perf_counter() - t0
+            sweeps = settle(svc, sweeps0)
+            launches = {n: getattr(K, n).launches for n in lanes_k}
+            counts = {k: ctr(k) - c0[k] for k in c0}
+            snap = svc.metrics_snapshot()
+            if snap["conservation_violations"]:
+                raise AssertionError(f"{label}: {snap['conservation_violations']}")
+            if sweeps != 1:
+                raise AssertionError(f"{label}: {sweeps} fusion sets, not 1")
+            st = svc.last_sweep_stats
+            lat = np.array([r.latency_s for r in res])
+            med = {k: float(np.median([getattr(i, k) for i in st]))
+                   for k in ("time_s", "exec_s", "kernel_s", "dispatches",
+                             "batches", "overlap_s", "live_lanes")}
+            summary = {
+                "wall_s": wall, "queries_per_s": len(qs) / wall,
+                "latency_p50_s": float(np.percentile(lat, 50)),
+                "latency_p99_s": float(np.percentile(lat, 99)),
+                "fusion_sets": sweeps, "iterations": len(st),
+                "launches": launches, "sweep_counts": counts,
+                "iter_median": med, "iters": [vars(i) for i in st]}
+            rep["runs"][label] = summary
+            print(f"  {label}: {len(qs)} queries in {wall:.2f} s "
+                  f"({len(qs) / wall:.2f} q/s), latency p50 "
+                  f"{summary['latency_p50_s']:.3f} s p99 "
+                  f"{summary['latency_p99_s']:.3f} s, {sweeps} fusion set(s), "
+                  f"{len(st)} iterations, launches {launches}, counts {counts}")
+            print(f"    per-iteration median: {json.dumps(med)}")
+            if svc.engine.backend_name == "cuda":
+                lane_k, other = (("ell_partials_ragged", "ell_partials_lanes")
+                                 if ragged else
+                                 ("ell_partials_lanes", "ell_partials_ragged"))
+                n = counts["dispatches"]
+                if not (n > 0 and launches[lane_k] == n and launches[other] == 0
+                        and launches["segment_combine_lanes"] == n
+                        and (not ragged or counts["ragged_dispatches"] == n)):
+                    raise AssertionError(f"{label}: launches {launches} != "
+                                         f"sweep counts {counts}")
+                for name in lanes_k:
+                    self.launches[name] += launches[name]
+            return res
+
+        f = lambda v: np.nan_to_num(v, posinf=1e30)
+        svc = GraphService.from_store(self.root, backend="cuda", device_resident=True,
+                                      **eng_kw, **common)
+        self.serve_engine = svc.engine
+        svc.engine.run(apps.pagerank(), max_iters=1)  # every shard onto the card
+        ragged = drive("cuda ragged resident", svc, queries, SERVE_ITERS, True)
+        svc.close(close_engine=False)
+        multi_svc = GraphService(self.serve_engine, ragged=False, **common)
+        multi = drive("cuda multi resident", multi_svc, queries, SERVE_ITERS, False)
+        multi_svc.close(close_engine=False)
+        for (p, v), x, y in zip(queries, ragged, multi):
+            if not (np.array_equal(f(x.values), f(y.values))
+                    and (x.iterations, x.converged) == (y.iterations, y.converged)):
+                raise AssertionError(f"{p} {v}: ragged != multi")
+        print(f"  ragged == multi bitwise for all {len(queries)} queries "
+              f"(values, iterations, converged)")
+
+        short = queries[:4]
+        store_svc = GraphService.from_store(self.root, backend="cuda",
+                                            device_resident=False, **eng_kw, **common)
+        with store_svc:
+            from_store = drive("cuda ragged from store", store_svc, short, 3, True)
+        with VSWEngine.from_store(self.root, backend="cuda", batch_shards=4,
+                                  device_resident=True, **eng_kw) as solo:
+            checks = [(i, SERVE_ITERS, ragged[i]) for i in range(3)]
+            checks += [(i, 3, r) for i, r in enumerate(from_store)]
+            for i, iters, qr in checks:
+                p, v = queries[i]
+                want = solo.run(apps.get_program(p, source=v), max_iters=iters)
+                if not (np.array_equal(f(qr.values), f(want.values))
+                        and qr.iterations == want.num_iterations
+                        and qr.converged == want.converged):
+                    raise AssertionError(f"{p} {v} max_iters={iters}: lane != solo run")
+        print("  one query per program == its solo cuda VSWEngine.run bitwise; "
+              "the 4 queries from the store too")
+
+        with GraphService.from_store(self.root, backend="torch", device_resident=True,
+                                     **eng_kw, **common) as torch_svc:
+            ref = drive("torch ragged resident", torch_svc, queries, SERVE_ITERS, True)
+        worst = 0.0
+        for (p, v), x, y in zip(queries, ragged, ref):
+            if p == "ppr":
+                err = float(np.abs(x.values - y.values).max())
+                worst = max(worst, err)
+                if not np.allclose(x.values, y.values, rtol=PR_RTOL, atol=PR_ATOL):
+                    raise AssertionError(f"ppr {v}: cuda vs torch max err {err}")
+            elif not (np.array_equal(f(x.values), f(y.values))
+                      and x.iterations == y.iterations):
+                raise AssertionError(f"{p} {v}: cuda != torch")
+        for key, r in (("ragged", ragged), ("multi", multi)):
+            for qr in r:
+                if qr.values.shape != (a.vertices,) or np.isnan(qr.values).any() or (
+                        qr.values == -np.inf).any():
+                    raise AssertionError(f"{key} {qr.program} {qr.source}: bad values")
+        rep["ppr_max_err_vs_torch"] = worst
+        print(f"  cuda == torch (bfs, sssp bitwise; ppr max err {worst:.3g})")
+
     def trace(self):
         from repro_torch.core import VSWEngine, apps
 
@@ -356,6 +571,39 @@ class Smoke:
                                          key=lambda kv: -kv[1]["ms"])[:12])
         self.report["trace"] = rep
         print(f"  {json.dumps(rep)}")
+        if self.serve_engine is not None:
+            self.trace_fusion_set()
+
+    def trace_fusion_set(self):
+        """One resident fusion set of the serve phase's 32 queries
+        (max_iters=5) under the profiler."""
+        from repro_torch.serve import GraphService
+
+        svc = GraphService(self.serve_engine, batch_shards=4, max_lanes=16,
+                           max_groups=2, session_entries=0)
+        out = Path(self.args.out).parent / "trace_resident_fusion_set.json"
+
+        def run():
+            with svc.submit_batch():
+                futs = [svc.submit(p, v, max_iters=5) for p, v in self.queries]
+            [f.result(timeout=600) for f in futs]
+            settle(svc, 0)
+            return svc.last_sweep_stats
+
+        try:
+            rep, st = device_trace(self.torch, run, out)
+        except Exception as exc:  # a diagnostic: report, do not fail
+            rep, st = {"not measured": repr(exc)}, None
+        finally:
+            svc.close(close_engine=False)
+        if st is not None:
+            rep["sweep_kernel_s"] = sum(i.kernel_s for i in st)
+            rep["sweep_exec_s"] = sum(i.exec_s for i in st)
+            rep["sweep_time_s"] = sum(i.time_s for i in st)
+            rep["by_name"] = dict(sorted(rep["by_name"].items(),
+                                         key=lambda kv: -kv[1]["ms"])[:12])
+        self.report["trace_fusion_set"] = rep
+        print(f"  fusion set: {json.dumps(rep)}")
 
     @staticmethod
     def partials_bytes(torch, idxs, masks, tws, window, tr):
@@ -451,6 +699,8 @@ class Smoke:
                 idxs, masks, tw0, msgs, **kw), 20)}
         print(f"  window staging probe: "
               f"{json.dumps(self.report['window_staging_probe'])}")
+        self.lane_timing(K, first, idxs, masks, tws, perms, ptrs, seg, n_valid,
+                         rows, rng)
         # the min combine (SSSP/WCC) at the same shape, for the record
         kmin = dict(kw, combine="min")
         self.report["timing_min"] = {
@@ -459,6 +709,96 @@ class Smoke:
             "segment_combine_ms": self.timed(lambda: K.segment_combine(
                 part, perms, ptrs, "min"), 50)}
         print(f"  min combine: {json.dumps(self.report['timing_min'])}")
+
+    def lane_timing(self, K, first, idxs, masks, tws, perms, ptrs, seg, n_valid,
+                    rows, rng):
+        """The lane kernels on the same batch at 16 and 32 lanes: the lanes
+        kernel with the sum combine; the ragged kernel and the lane combine
+        with half the lanes on a min arm and half on a sum arm, as a fusion
+        set of BFS/SSSP and PPR lanes."""
+        import numpy as np
+        torch = self.torch
+        dev = first.idx.device
+        window, tr = first.window, first.tr
+        n_pad = first.num_windows * first.window
+        t = self.timings
+        arms = ("min", "sum")
+        for L in (16, 32):
+            x = torch.from_numpy(rng.random((L, n_pad)).astype(np.float32)).to(dev)
+            lanes = K.LaneMessages(x)
+            lanes.vertex_major()  # staged once an iteration on the path
+            cids = torch.tensor([0] * (L // 2) + [1] * (L - L // 2),
+                                dtype=torch.int32, device=dev)
+            lane_c = [arms[i] for i in cids.tolist()]
+            kw = dict(window=window, tr=tr)
+            args = (idxs, masks, tws)
+            part = K.ell_partials_lanes(*args, lanes, combine="sum", **kw)
+            self.compare_lanes("ell_partials_lanes", part, K.ell_partials_lanes_plain(
+                *args, lanes, combine="sum", **kw), ["sum"] * L, "main batch")
+            rpart = K.ell_partials_ragged(*args, cids, lanes, combines=arms, **kw)
+            self.compare_lanes("ell_partials_ragged", rpart, K.ell_partials_ragged_plain(
+                *args, cids, lanes, combines=arms, **kw), lane_c, "main batch")
+            acc = K.segment_combine_lanes(rpart, perms, ptrs, arms, cids)
+            self.compare_lanes("segment_combine_lanes", acc,
+                               K.segment_combine_lanes_plain(rpart, perms, ptrs,
+                                                             arms, cids),
+                               lane_c, "main batch")
+            pbytes = self.lane_partials_bytes(torch, idxs, masks, tws, window, tr, L)
+            lib = torch.zeros((L, rows), device=dev)
+            t[f"ell_partials_lanes L={L}"] = dict(
+                ms=self.timed(lambda: K.ell_partials_lanes(
+                    *args, lanes, combine="sum", **kw), 10),
+                plain_ms=self.timed(lambda: K.ell_partials_lanes_plain(
+                    *args, lanes, combine="sum", **kw), 1),
+                library_ms=None, bytes=pbytes)
+            t[f"ell_partials_ragged L={L}"] = dict(
+                ms=self.timed(lambda: K.ell_partials_ragged(
+                    *args, cids, lanes, combines=arms, **kw), 10),
+                plain_ms=self.timed(lambda: K.ell_partials_ragged_plain(
+                    *args, cids, lanes, combines=arms, **kw), 1),
+                library_ms=None, bytes=pbytes)
+            t[f"segment_combine_lanes L={L}"] = dict(
+                ms=self.timed(lambda: K.segment_combine_lanes(
+                    rpart, perms, ptrs, arms, cids), 20),
+                plain_ms=self.timed(lambda: K.segment_combine_lanes_plain(
+                    rpart, perms, ptrs, arms, cids), 2),
+                library_ms=self.timed(
+                    lambda: lib.zero_().index_add_(1, seg, part), 20),
+                bytes=4 * (L * n_valid + n_valid + rows + len(ptrs) + L * rows + L))
+            del x, lanes, part, rpart, acc, lib
+        for kname, d in t.items():
+            d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
+            if " L=" in kname:
+                print(f"  {kname}: {json.dumps(d)}")
+
+    @staticmethod
+    def lane_partials_bytes(torch, idxs, masks, tws, window, tr, n_lanes):
+        """Bytes the lane partials must move on this data: the mask plane
+        and the idx sectors of valid slots once (not once a lane), the
+        whole 32 B sectors of each distinct gathered source's L lanes in
+        the vertex-major table, tile_window, the lane ids and L floats out
+        per ELL row."""
+        total, srcs = 4 * n_lanes, []
+        for idx, mask, tw in zip(idxs, masks, tws):
+            n_ell, k = idx.shape
+            total += mask.numel() + 4 * tw.numel() + 4 * n_lanes * n_ell
+            r, c = mask.nonzero(as_tuple=True)
+            byte = (r * k + c) * idx.element_size()
+            total += 32 * torch.unique(byte // 32).numel()
+            col = idx[r, c].long().clamp_(0, window - 1)
+            srcs.append(tw.long()[r // tr] * window + col)
+        run = -(-4 * n_lanes // 32) * 32
+        return total + run * torch.unique(torch.cat(srcs)).numel()
+
+
+def settle(svc, sweeps0, timeout=120.0):
+    """Fusion sets the service finished since it had finished ``sweeps0``.
+    A query's future resolves inside its sweep, before the sweep books its
+    stats, so this waits (up to ``timeout``) for the first one to book."""
+    deadline = time.monotonic() + timeout
+    while svc.stats()["sweeps"] == sweeps0 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    return svc.stats()["sweeps"] - sweeps0
 
 
 def device_trace(torch, run, trace_path):
@@ -516,8 +856,11 @@ def main(argv=None) -> int:
         smoke.phase("small_engine", smoke.small_engine)
         smoke.phase("main", smoke.main_path)
         if "main" not in smoke.failures:
+            smoke.phase("serve", smoke.serve)
             smoke.phase("timing", smoke.timing)
             smoke.phase("trace", smoke.trace)
+    if smoke.serve_engine is not None:
+        smoke.serve_engine.close()
     smoke.report["total_s"] = time.perf_counter() - t_all
     smoke.report["card"] = card
     if getattr(smoke, "tmp", None) is not None:
@@ -530,11 +873,9 @@ def main(argv=None) -> int:
     if smoke.failures:
         print(f"chip_smoke: FAILED phases {smoke.failures}", file=sys.stderr)
         return 1
-    src = {"ell_partials_masked": "src/repro/kernels/spmv_ell/kernel.py:63",
-           "segment_combine": "src/repro/kernels/spmv_ell/ops.py:40"}
     kernels = []
-    for name, rep in src.items():
-        d = smoke.timings[name]
+    for name, (rep, shape) in KERNELS.items():
+        d = smoke.timings[name + shape]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/spmv_ell.cu", "replaces": rep,

@@ -16,9 +16,11 @@ from . import apps
 from .csr import DeviceEll, EllShard, csr_to_ell, ell_to_device
 from .executor import (
     BACKENDS,
+    LANE_BACKENDS,
     BatchedEllExecutor,
     PerShardExecutor,
     make_executor,
+    make_lane_executor,
     resolve_device,
 )
 from .graph import (
@@ -55,6 +57,7 @@ __all__ = [
     "IOStats",
     "ShardStore",
     "BACKENDS",
+    "LANE_BACKENDS",
     "IterStats",
     "RunResult",
     "VSWEngine",
@@ -66,5 +69,6 @@ __all__ = [
     "PerShardExecutor",
     "BatchedEllExecutor",
     "make_executor",
+    "make_lane_executor",
     "resolve_device",
 ]

@@ -19,7 +19,7 @@ gather+combine that the device kernels implement.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -27,7 +27,8 @@ from .sharding import GraphMeta
 
 __all__ = ["VertexProgram", "pagerank", "sssp", "wcc", "bfs",
            "personalized_pagerank", "degree_centrality", "get_program",
-           "COMBINE_IDENTITY"]
+           "COMBINE_IDENTITY", "LaneProgram", "lane_sssp", "lane_bfs",
+           "lane_wcc", "lane_ppr", "get_lane_program"]
 
 COMBINE_IDENTITY = {"sum": 0.0, "min": np.inf, "max": -np.inf}
 
@@ -166,6 +167,146 @@ def degree_centrality() -> VertexProgram:
         )
 
     return VertexProgram("degree", "sum", pre, apply, init)
+
+
+# --------------------------------------------------------------------------
+# Lane-vectorized programs (serving layer)
+# --------------------------------------------------------------------------
+# A serving sweep runs K per-source queries as K *lanes* of one sweep:
+# vertex state is (K, n) and one shard load feeds every lane.  The source
+# vertex is carried explicitly through ``apply`` so lanes can retire and be
+# backfilled mid-sweep.  Lanes of different programs sharing a combine
+# algebra (``combine_key``) share one lane matrix — the lane table applies
+# each lane's own ``pre``/``apply`` — so BFS, SSSP and WCC fuse.
+
+
+@dataclasses.dataclass
+class LaneProgram:
+    """One per-source graph application, vectorized over K query lanes.
+
+    Attributes:
+      combine:   monoid over in-edge messages (same as VertexProgram).
+      key:       full static identity (program name and static parameters,
+                 e.g. PPR damping); the session cache and the lane table's
+                 ``pre``/``apply`` grouping key on it.
+      combine_key: fusion key, coarser than ``key``: lanes whose programs
+                 share it may share one lane matrix.  Defaults to
+                 ``(combine,)``.
+      pre:       (vals [K, n], out_deg [n]) -> messages [K, n].
+      apply:     (acc [K, rows], old [K, rows], meta, v0, sources [K]) ->
+                 new [K, rows]; ``sources[k]`` is lane k's query source.
+      init_lane: (meta, source) -> (vals [n], active [n]) for ONE lane.
+      is_active: (new, old) -> bool [K, n]; exact inequality.
+    """
+
+    name: str
+    combine: str
+    key: Tuple
+    pre: Callable[[np.ndarray, np.ndarray], np.ndarray]
+    apply: Callable[..., np.ndarray]
+    init_lane: Callable[[GraphMeta, int], Tuple[np.ndarray, np.ndarray]]
+    combine_key: Optional[Tuple] = None
+    is_active: Callable[[np.ndarray, np.ndarray], np.ndarray] = (
+        lambda new, old: new != old
+    )
+
+    def __post_init__(self) -> None:
+        if self.combine_key is None:
+            self.combine_key = (self.combine,)
+
+    @property
+    def identity(self) -> float:
+        return COMBINE_IDENTITY[self.combine]
+
+
+def _lane_min_distance(name: str) -> LaneProgram:
+    """Shared lane algebra of unit-weight SSSP / BFS levels."""
+
+    def pre(vals: np.ndarray, out_deg: np.ndarray) -> np.ndarray:
+        return vals + np.asarray(1.0, dtype=vals.dtype)
+
+    def apply(acc, old, meta, v0=0, sources=None):
+        return np.minimum(acc, old).astype(old.dtype)
+
+    def init_lane(meta: GraphMeta, source: int):
+        vals = np.full(meta.num_vertices, np.inf, dtype=np.float32)
+        vals[source] = 0.0
+        active = np.zeros(meta.num_vertices, dtype=bool)
+        active[source] = True
+        return vals, active
+
+    return LaneProgram(name, "min", (name,), pre, apply, init_lane)
+
+
+def lane_sssp() -> LaneProgram:
+    """Lane-vectorized unit-weight SSSP (one source per lane)."""
+    return _lane_min_distance("sssp")
+
+
+def lane_bfs() -> LaneProgram:
+    """Lane-vectorized BFS levels — identical algebra to unit-weight SSSP."""
+    return _lane_min_distance("bfs")
+
+
+def lane_wcc() -> LaneProgram:
+    """Lane-vectorized WCC label propagation (min component id).  The query
+    ``source`` is ignored: every lane computes the full labelling, op for
+    op as :func:`wcc`, and fuses with BFS/SSSP."""
+
+    def pre(vals: np.ndarray, out_deg: np.ndarray) -> np.ndarray:
+        return vals
+
+    def apply(acc, old, meta, v0=0, sources=None):
+        return np.minimum(acc, old).astype(old.dtype)
+
+    def init_lane(meta: GraphMeta, source: int):
+        vals = np.arange(meta.num_vertices, dtype=np.float32)
+        return vals, np.ones(meta.num_vertices, dtype=bool)
+
+    return LaneProgram("wcc", "min", ("wcc",), pre, apply, init_lane)
+
+
+def lane_ppr(damping: float = 0.85) -> LaneProgram:
+    """Lane-vectorized personalized PageRank: each lane's teleport mass
+    returns to that lane's source.  Op for op as
+    :func:`personalized_pagerank` (same multiply, same in-place add at the
+    source slot), so a lane is bitwise its single-query run."""
+
+    def pre(vals: np.ndarray, out_deg: np.ndarray) -> np.ndarray:
+        return vals / np.maximum(out_deg, 1).astype(vals.dtype)
+
+    def apply(acc, old, meta, v0=0, sources=None):
+        out = (damping * acc).astype(old.dtype)
+        if sources is not None:
+            local = np.asarray(sources, dtype=np.int64) - v0
+            lanes = np.flatnonzero((local >= 0) & (local < out.shape[1]))
+            out[lanes, local[lanes]] += np.float32(1.0 - damping)
+        return out
+
+    def init_lane(meta: GraphMeta, source: int):
+        vals = np.zeros(meta.num_vertices, dtype=np.float32)
+        vals[source] = 1.0
+        return vals, np.ones(meta.num_vertices, dtype=bool)
+
+    return LaneProgram("ppr", "sum", ("ppr", float(damping)), pre, apply,
+                       init_lane)
+
+
+LANE_PROGRAMS: Dict[str, Callable[..., LaneProgram]] = {
+    "bfs": lane_bfs,
+    "sssp": lane_sssp,
+    "wcc": lane_wcc,
+    "ppr": lane_ppr,
+}
+
+
+def get_lane_program(name: str, **kwargs) -> LaneProgram:
+    """Factory for lane-vectorized per-source programs (serving layer)."""
+    if name not in LANE_PROGRAMS:
+        raise KeyError(
+            f"unknown lane program {name!r}; have {sorted(LANE_PROGRAMS)}"
+        )
+    return LANE_PROGRAMS[name](**kwargs)
 
 
 _REGISTRY: Dict[str, Callable[..., VertexProgram]] = {

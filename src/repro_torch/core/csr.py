@@ -41,6 +41,9 @@ __all__ = [
     "concat_ells",
     "DeviceEll",
     "ell_to_device",
+    "next_pow2",
+    "ragged_lane_pad",
+    "ragged_lane_concat",
     "DEFAULT_K",
     "DEFAULT_TR",
     "DEFAULT_WINDOW",
@@ -50,6 +53,10 @@ __all__ = [
 DEFAULT_K = 128  # ELL width
 DEFAULT_TR = 8  # tile rows
 DEFAULT_WINDOW = 1 << 14  # 16384 source vertices per window (64KB fp32 table)
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(int(np.ceil(np.log2(max(n, 1)))), 0)
 
 
 @dataclasses.dataclass
@@ -189,6 +196,69 @@ def concat_ells(ells: Sequence[EllShard]) -> EllBatch:
         k=first.k,
         tr=first.tr,
     )
+
+
+def ragged_lane_pad(lane_counts: Sequence[int]) -> int:
+    """Padded lane count for ONE ragged launch covering all fusion groups.
+
+    The multi-launch path pads every group to its own power of two, so its
+    total waste is ``sum(next_pow2(k_g)) - sum(k_g)``.  One ragged launch
+    pads the concatenated count to ``next_pow2(K_total)``, capped at the
+    per-group pow2 total, so its waste is never worse than the G-launch
+    waste (counts ``1,1,1`` give 3, not 4).
+    """
+    k_total = int(sum(int(k) for k in lane_counts))
+    per_group = int(sum(next_pow2(max(int(k), 1)) for k in lane_counts))
+    return max(1, min(next_pow2(max(k_total, 1)), per_group))
+
+
+def ragged_lane_concat(msgs_by_group, combines: Sequence[str], *,
+                       n_cols: Optional[int] = None,
+                       out: Optional[np.ndarray] = None):
+    """Concatenate per-group lane matrices along the lane axis for one
+    ragged launch.
+
+    Returns ``(msgs_all, combine_ids, combines_set, group_slices)``:
+
+    - ``msgs_all``   [k_pad, n_cols] — groups stacked then zero-padded to
+      :func:`ragged_lane_pad` lanes (and to ``n_cols`` columns, the
+      window-padded vertex count).  ``out``, when given, is that array,
+      preallocated by the caller (a pinned staging buffer).
+    - ``combine_ids`` int32 [k_pad] — per lane, the index of its combine op
+      in ``combines_set``.  Padding lanes get ``len(combines_set)``, an id
+      that matches no arm.
+    - ``combines_set`` — deduplicated combine ops in first-seen order (two
+      groups sharing a monoid share one kernel arm).
+    - ``group_slices`` — per input group, its lane interval in ``msgs_all``.
+    """
+    if len(msgs_by_group) != len(combines):
+        raise ValueError("one combine op per group required")
+    if not msgs_by_group:
+        raise ValueError("empty ragged lane concat")
+    combines_set = tuple(dict.fromkeys(combines))
+    counts = [int(m.shape[0]) for m in msgs_by_group]
+    k_pad = ragged_lane_pad(counts)
+    n = int(msgs_by_group[0].shape[1] if n_cols is None else n_cols)
+    if out is None:
+        msgs_all = np.zeros((k_pad, n), dtype=msgs_by_group[0].dtype)
+    else:
+        if out.shape != (k_pad, n):
+            raise ValueError(f"out has shape {out.shape}, need {(k_pad, n)}")
+        msgs_all = out
+    combine_ids = np.full(k_pad, len(combines_set), dtype=np.int32)
+    group_slices = []
+    off = 0
+    for m, c in zip(msgs_by_group, combines):
+        if m.shape[1] > n:
+            raise ValueError("group lane matrix wider than n_cols")
+        sl = slice(off, off + int(m.shape[0]))
+        msgs_all[sl, : m.shape[1]] = m
+        msgs_all[sl, m.shape[1]:] = 0
+        combine_ids[sl] = combines_set.index(c)
+        group_slices.append(sl)
+        off = sl.stop
+    msgs_all[off:] = 0
+    return msgs_all, combine_ids, combines_set, group_slices
 
 
 def csr_to_ell(

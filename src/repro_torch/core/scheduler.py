@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -29,13 +29,23 @@ __all__ = ["ShardPlan", "ShardScheduler"]
 class ShardPlan:
     """Ordered work list for one iteration, in interval order (shard p
     writes ``DstVertexArray`` interval p; consecutive planned ELL shards
-    are what the batched executor concatenates)."""
+    are what the batched executor concatenates).
+
+    ``lane_masks`` (lane-aware selective scheduling, serving layer): when
+    the planner was given per-lane active sets, ``lane_masks[p][l]`` says
+    whether lane ``l`` may produce updates from shard ``p``.  A planned
+    shard always has at least one True lane; lanes masked False carry their
+    previous interval values (DESIGN.md §6).  ``None`` means every lane
+    needs every planned shard.  For a fused sweep the lane axis is every
+    live lane of every program group, in group order.
+    """
 
     shards: List[int]
     skipped: List[int]
     selective_on: bool
     active_ratio: float
     plan_time_s: float
+    lane_masks: Optional[Dict[int, np.ndarray]] = None
 
     @property
     def num_planned(self) -> int:
@@ -44,6 +54,22 @@ class ShardPlan:
     @property
     def num_skipped(self) -> int:
         return len(self.skipped)
+
+    def lane_shares(self, n_lanes: int) -> np.ndarray:
+        """Mask-aware per-lane share of this plan's shard loads: each
+        planned shard's one load is split over only the lanes it was
+        dispatched for (evenly over all lanes without masks).  The shares
+        sum to ``num_planned``, so attribution built on them is conserved."""
+        shares = np.zeros(n_lanes, dtype=np.float64)
+        if n_lanes == 0:
+            return shares
+        if self.lane_masks is None:
+            shares[:] = self.num_planned / n_lanes
+            return shares
+        for p in self.shards:
+            mask = self.lane_masks[p]
+            shares[mask] += 1.0 / int(mask.sum())
+        return shares
 
 
 class ShardScheduler:
@@ -113,8 +139,19 @@ class ShardScheduler:
             return bool(np.isin(active_ids, srcs, assume_unique=False).any())
         return self.filters[p].any_member(active_ids)
 
-    def plan(self, active_ids: np.ndarray) -> ShardPlan:
-        """Emit this iteration's ordered shard plan."""
+    def plan(
+        self,
+        active_ids: np.ndarray,
+        *,
+        lane_active: Optional[Sequence[np.ndarray]] = None,
+    ) -> ShardPlan:
+        """Emit this iteration's ordered shard plan.
+
+        ``active_ids`` is the (union) active vertex set.  ``lane_active``
+        optionally carries the per-lane active sets of a lane sweep; when
+        selective scheduling engages (which implies every lane is below
+        the threshold too), the plan then also holds a per-shard lane mask.
+        """
         with trace.span("sweep.plan") as sp:
             t0 = time.perf_counter()
             active_ratio = len(active_ids) / max(self.meta.num_vertices, 1)
@@ -125,17 +162,31 @@ class ShardScheduler:
             )
             planned: List[int] = []
             skipped: List[int] = []
-            for p in range(self.meta.num_shards):
-                if not use_selective or self.shard_is_active(p, active_ids):
-                    planned.append(p)
-                else:
-                    skipped.append(p)
+            lane_masks: Optional[Dict[int, np.ndarray]] = None
+            if use_selective and lane_active is not None and len(lane_active) > 1:
+                lane_masks = {}
+                for p in range(self.meta.num_shards):
+                    mask = np.fromiter(
+                        (self.shard_is_active(p, ids) for ids in lane_active),
+                        dtype=bool, count=len(lane_active))
+                    if mask.any():
+                        planned.append(p)
+                        lane_masks[p] = mask
+                    else:
+                        skipped.append(p)
+            else:
+                for p in range(self.meta.num_shards):
+                    if not use_selective or self.shard_is_active(p, active_ids):
+                        planned.append(p)
+                    else:
+                        skipped.append(p)
             out = ShardPlan(
                 shards=planned,
                 skipped=skipped,
                 selective_on=use_selective,
                 active_ratio=active_ratio,
                 plan_time_s=time.perf_counter() - t0,
+                lane_masks=lane_masks,
             )
             sp.set(shards=len(planned), skipped=len(skipped),
                    selective=use_selective)

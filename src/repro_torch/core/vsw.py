@@ -36,6 +36,7 @@ and ``cuda`` backends run the per-shard update on ``device``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import weakref
@@ -235,6 +236,13 @@ class VSWEngine:
     def _fmt(self) -> str:
         """Which on-disk representation this backend consumes."""
         return "csr" if self.backend_name == "numpy" else "ell"
+
+    @contextlib.contextmanager
+    def _sweep_session(self):
+        """One sweep's delta scope.  The reference pins a delta overlay
+        version here; the port's stores carry no delta files (the store
+        refuses them, ROADMAP Queue 1 item 6), so there is nothing to pin."""
+        yield None
 
     @property
     def loading_io(self):

@@ -13,6 +13,10 @@ Span names used by the engine::
     vsw.run / vsw.iter / sweep.plan / bloom.build
     shard.load / shard.wait / shard.decode / shard.to_device
     store.read / store.write / cache.get / cache.put / exec.dispatch
+    sweep.iter / batch.form / service.admit / service.fusion_set /
+    service.retire
+
+and instant events ``lane.retire`` and ``service.cache_hit``.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-__all__ = ["NULL_SPAN", "Span", "Tracer", "active", "install", "span",
-           "tracing", "uninstall"]
+__all__ = ["NULL_SPAN", "Span", "Tracer", "active", "dropped_events",
+           "install", "instant", "publish_drops", "span", "tracing",
+           "uninstall"]
 
 
 class _NullSpan:
@@ -59,6 +64,32 @@ def span(name: str, **attrs: Any) -> Any:
     if t is None:
         return NULL_SPAN
     return t.span(name, **attrs)
+
+
+def instant(name: str, **attrs: Any) -> None:
+    """Record an instant event if tracing is enabled."""
+    t = _ACTIVE
+    if t is not None:
+        t.instant(name, **attrs)
+
+
+def dropped_events() -> int:
+    """Events dropped so far by the active tracer's rings (0 when tracing
+    is disabled)."""
+    t = _ACTIVE
+    return t.dropped_events() if t is not None else 0
+
+
+def publish_drops(registry: Any) -> int:
+    """Mirror the active tracer's drop count into ``registry`` as the
+    ``trace.dropped_events`` counter (created on the first drop only).
+    Returns the total."""
+    d = dropped_events()
+    if d > 0:
+        c = registry.counter("trace.dropped_events")
+        if d > c.value:
+            c.add(d - c.value)
+    return d
 
 
 def install(tracer: "Tracer") -> "Tracer":
@@ -178,10 +209,18 @@ class Tracer:
     def span(self, name: str, **attrs: Any) -> Span:
         return Span(self._ring(), name, attrs or None)
 
+    def instant(self, name: str, **attrs: Any) -> None:
+        self._ring().push((name, time.perf_counter_ns(), None, attrs or None))
+
     def open_span_count(self) -> int:
         """Number of spans currently entered but not yet exited."""
         with self._reg_lock:
             return sum(r.depth for r in self._rings)
+
+    def dropped_events(self) -> int:
+        """Oldest-event drops across all rings."""
+        with self._reg_lock:
+            return sum(max(0, r.n - r.capacity) for r in self._rings)
 
     def export_chrome(self, path: Optional[str] = None) -> Dict[str, Any]:
         """Render all recorded spans as a Chrome-trace JSON object (and
@@ -201,8 +240,11 @@ class Tracer:
                 rec: Dict[str, Any] = {
                     "ph": "X", "pid": pid, "tid": ring.tid, "name": name,
                     "ts": (t_ns - self.epoch_ns) / 1000.0,
-                    "dur": dur / 1000.0,
                 }
+                if dur is None:  # an instant event
+                    rec.update(ph="i", s="t")
+                else:
+                    rec["dur"] = dur / 1000.0
                 if attrs:
                     rec["args"] = _jsonable(attrs)
                 events.append(rec)

@@ -27,6 +27,8 @@ import repro_torch.kernels.build
 import repro_torch.kernels.spmv_ell.ops
 import repro_torch.kernels.spmv_ell.ref
 import repro_torch.obs
+import repro_torch.obs.metrics
+import repro_torch.serve
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 import torch
@@ -45,6 +47,18 @@ with tempfile.TemporaryDirectory() as d:
             assert "no CUDA device" in str(e)
         else:
             raise AssertionError("default device ran without a card")
+from repro_torch.serve import GraphService
+with tempfile.TemporaryDirectory() as d:
+    g = rmat_graph(200, 1500, seed=2)
+    with GraphService.from_graph(g, d, num_shards=2, window=64, k=8,
+                                 backend="cuda", device="cpu",
+                                 max_lanes=2) as svc:
+        with svc.submit_batch():
+            futs = [svc.submit(p, 3, max_iters=4) for p in ("bfs", "ppr")]
+        assert all(f.result(timeout=120).values.shape == (200,) for f in futs)
+        assert svc.metrics_snapshot()["conservation_violations"] == []
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
 print("isolated ok")
 """
 
@@ -63,6 +77,6 @@ def test_import_and_run_with_jax_and_reference_blocked(tmp_path):
 def test_sources_never_name_jax_or_the_reference_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 21
     for f in files:
         assert not pat.search(f.read_text()), f

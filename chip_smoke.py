@@ -7,7 +7,7 @@ Phases (any failure makes the exit code non-zero and suppresses the last
 line):
 
 1. build    compile ``src/repro_torch/csrc/*.cu`` for sm_90a into ``build/``.
-2. kernels  hold each kernel against its plain PyTorch version on the card,
+2. kernels  hold each ELL kernel against its plain PyTorch version on the card,
             for sum/min/max, at the default W=16384/K=128/TR=8 on an R-MAT
             shard, on a star-graph hub that needs row splitting, and on an
             empty shard.  min/max must match bitwise; sum within
@@ -17,7 +17,23 @@ line):
             lanes of a ragged launch are 0.
             A small engine run of the ``cuda`` backend is held against the
             ``numpy`` oracle (bitwise for min/max programs).
-3. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
+3. lm_kernels  the flash-attention kernel against its plain version (GQA
+            8:1, D=128; S = 24, 512, 8192, Sq < Skv, non-causal; f32 within
+            2e-3, bf16 within 5e-2, the reference's kernel tolerances), then
+            timed at B=4 S=512 and B=1 S=8192 (bf16, causal) beside its
+            bound (the larger of 4 B Hq S^2 D / 2 flops over 989 TFLOP/s and
+            q+k+v+o bytes over 3.35 TB/s), the plain version and one SDPA call.
+4. lm_serve the LM serving launcher at Qwen2.5-3B's full width and depth
+            (36 layers, f32 master weights from the seed, 12.3 GB): 8
+            requests of 512 tokens in batches of 4, 32 tokens each, and one
+            request at the launcher's defaults (24 tokens, 16 out), with
+            attn_impl "cuda".  The flash kernel's launches must equal 36 x
+            the prefill batches; the first batch's last-position logits
+            must match attn_impl "torch" on the same weights (rtol 2e-2,
+            atol 2e-2 x max(1, max |logit|)); token ids in range; a second
+            run from the same seed bitwise the same.  A prefill and a decode
+            step are traced (diagnostic).
+5. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
             prefetch_depth=2, cache_bytes=1 GiB: PageRank (5 iterations),
             SSSP and WCC on backend ``cuda``, once with
@@ -25,7 +41,7 @@ line):
             backend ``torch`` on the card (min/max bitwise, PageRank within
             rtol=1e-4, atol=1e-9).  The kernels' launch counters must equal
             the executor's dispatches.
-4. serve    the serving path on the same store: ``GraphService`` with
+6. serve    the serving path on the same store: ``GraphService`` with
             backend ``cuda``, device_resident=True, batch_shards=4,
             max_lanes=16, max_groups=2 answers 32 BFS/SSSP/PPR queries
             (max_iters=20) in one fusion set through the ragged lane
@@ -37,7 +53,7 @@ line):
             bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
             must equal the sweeps' dispatches, and the service's metrics
             must show no conservation violation.
-5. timing   each kernel, its plain version and a one-call library yardstick
+7. timing   each ELL kernel, its plain version and a one-call library yardstick
             timed with CUDA events, L2 flushed before each call, on the
             main path's first batch of shards (the lane kernels at 16 and
             32 lanes), beside its bound: the bytes the function must move
@@ -45,7 +61,7 @@ line):
             the 32 B sectors of idx that hold valid slots, the message
             sectors they gather, tile_window and the output (see
             spmv_ell.cu).
-6. trace    (diagnostic: a profiler error leaves "not measured" and does
+8. trace    (diagnostic: a profiler error leaves "not measured" and does
             not fail the run) one resident PageRank run of 3 iterations and
             one resident fusion set of 32 queries (max_iters=5) under
             torch.profiler: each kernel's device time as the engine
@@ -76,15 +92,34 @@ SERVE_QUERIES, SERVE_ITERS = 32, 20
 SLEEP_CYCLES = 100_000_000  # about 50 ms of card time ahead of timed calls
 L2_FLUSH_BYTES = 256 << 20  # written before each timed call; the L2 holds 50 MB
 COMBINES = ("sum", "min", "max")
-#: kernel -> the TPU kernel (or XLA step) it replaces, and the shape of the
-#: timing phase that stands for it in the kernels line
+SPMV_CU = "src/repro_torch/csrc/spmv_ell.cu"
+FLASH_CU = "src/repro_torch/csrc/flash_attention.cu"
+#: kernel -> the TPU kernel (or XLA step) it replaces, the shape of the
+#: timing phase that stands for it in the kernels line, and its source
 KERNELS = {
-    "ell_partials_masked": ("src/repro/kernels/spmv_ell/kernel.py:63", ""),
-    "segment_combine": ("src/repro/kernels/spmv_ell/ops.py:40", ""),
-    "ell_partials_lanes": ("src/repro/kernels/spmv_ell/ops.py:72", " L=16"),
-    "ell_partials_ragged": ("src/repro/kernels/spmv_ell/kernel.py:123", " L=32"),
-    "segment_combine_lanes": ("src/repro/kernels/spmv_ell/ops.py:301", " L=32"),
+    "ell_partials_masked": ("src/repro/kernels/spmv_ell/kernel.py:63", "", SPMV_CU),
+    "segment_combine": ("src/repro/kernels/spmv_ell/ops.py:40", "", SPMV_CU),
+    "ell_partials_lanes": ("src/repro/kernels/spmv_ell/ops.py:72", " L=16", SPMV_CU),
+    "ell_partials_ragged": ("src/repro/kernels/spmv_ell/kernel.py:123", " L=32",
+                            SPMV_CU),
+    "segment_combine_lanes": ("src/repro/kernels/spmv_ell/ops.py:301", " L=32",
+                              SPMV_CU),
+    "flash_attention": ("src/repro/kernels/flash_attention/kernel.py:212",
+                        " B=4 S=512", FLASH_CU),
 }
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+#: flash kernel vs its plain version (tests/test_kernels.py:125,137,148)
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+LM_ARCH = "qwen2.5-3b"
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_GEN = 8, 4, 512, 32
+LM_DEFAULT_PROMPT, LM_DEFAULT_GEN = 24, 16  # the launcher's defaults
+#: last-position prefill logits, attn_impl "cuda" vs "torch" on the same
+#: weights: the activations are bf16, and the two paths differ only in the
+#: attention's f32 summation order before each layer's output is rounded
+#: to bf16 (2^-8 relative), so a rounding may flip and travel up the 36
+#: layers.  The parity tests' bf16 tolerance: rtol 2e-2, atol 2e-2 x
+#: max(1, max |logit|) (tests/test_torch_lm.py).
+LM_RTOL = LM_ATOL = 2e-2
 
 
 def parse_args(argv):
@@ -109,6 +144,8 @@ class Smoke:
         self.launches = dict.fromkeys(KERNELS, 0)
         self.l2_flush = None
         self.serve_engine = None
+        self.timings = {}
+        self.lm_timings = {}
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -771,6 +808,183 @@ class Smoke:
             if " L=" in kname:
                 print(f"  {kname}: {json.dumps(d)}")
 
+    # ------------------------------------------------------------ LM path
+    def lm_kernels(self):
+        """The flash kernel against its plain version on the card (GQA 8:1,
+        D=128; ragged, long, suffix-aligned and non-causal shapes; f32 and
+        bf16), then timed at the serving path's shapes."""
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import kernel as FK
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(self.args.seed)
+
+        def qkv(B, Sq, Skv, dtype, Hq=16, Hkv=2, D=128):
+            mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            return mk(B, Hq, Sq, D), mk(B, Hkv, Skv, D), mk(B, Hkv, Skv, D)
+
+        cases = [(4, 24, 24, True), (4, 512, 512, True), (1, 8192, 8192, True),
+                 (2, 200, 1000, True), (4, 512, 512, False), (2, 24, 600, False)]
+        rep = self.report["lm_kernels"] = {"checks": [], "timing": {}}
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            for B, Sq, Skv, causal in cases:
+                q, k, v = qkv(B, Sq, Skv, dtype)
+                out = FK.flash_attention(q, k, v, causal=causal)
+                want = FK.flash_attention_plain(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                a, b = out.float(), want.float()
+                if out.dtype != dtype or a.shape != b.shape or not torch.isfinite(a).all():
+                    raise AssertionError(f"flash {dtype} {B, Sq, Skv, causal}: "
+                                         f"bad output")
+                err = float((a - b).abs().max())
+                self.errs["flash_attention"] = max(self.errs["flash_attention"], err)
+                where = dict(dtype=str(dtype), B=B, Hq=16, Hkv=2, Sq=Sq, Skv=Skv,
+                             D=128, causal=causal, max_abs_err=err)
+                rep["checks"].append(where)
+                print(f"  flash {json.dumps(where)}")
+                if not torch.allclose(a, b, rtol=tol, atol=tol):
+                    raise AssertionError(f"flash {where}: beyond {tol}")
+                del q, k, v, out, want, a, b
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for B, S, reps, plain_reps in ((4, 512, 20, 5), (1, 8192, 5, 2)):
+            q, k, v = qkv(B, S, S, torch.bfloat16)
+            flops = 4 * B * 16 * S * S * 128 / 2  # causal: half the pairs
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
+            bound = {"operations": flops / BF16_FLOPS_PER_S * 1e3,
+                     "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+            by = max(bound, key=bound.get)
+            d = dict(
+                ms=self.timed(lambda: FK.flash_attention(q, k, v, causal=True), reps),
+                plain_ms=self.timed(lambda: FK.flash_attention_plain(
+                    q, k, v, causal=True), plain_reps),
+                # Sq == Skv: SDPA's top-left causal mask is the suffix one
+                library_ms=self.timed(lambda: sdpa(q, k, v, is_causal=True,
+                                                   enable_gqa=True), reps),
+                bound_ms=bound[by], bound_by=by, flops=flops, bytes=nbytes)
+            self.lm_timings[f"flash_attention B={B} S={S}"] = d
+            rep["timing"][f"B={B} S={S}"] = d
+            print(f"  flash_attention B={B} Hq=16 Hkv=2 S={S} D=128 bf16 causal: "
+                  f"{json.dumps(d)}")
+            del q, k, v
+
+    def lm_serve(self):
+        """The LM serving launcher at Qwen2.5-3B's full width and depth: see
+        the module docstring."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.distributed.sharding import ShardingCtx
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.launch import serve as S
+        from repro_torch.models import model as M
+
+        a = self.args
+        cfg = configs.get_config(LM_ARCH)
+        cuda, plain = ShardingCtx(attn_impl="cuda"), ShardingCtx(attn_impl="torch")
+        rep = self.report["lm_serve"] = {"arch": cfg.name}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = M.init_params(a.seed, cfg, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        rep["init_s"] = time.perf_counter() - t0
+        rep["params"] = sum(p.numel() for p in params.parameters())
+        rep["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in params.parameters())
+        prompts = S.make_prompts(cfg, LM_REQUESTS, LM_PROMPT, a.seed)
+        short = S.make_prompts(cfg, 1, LM_DEFAULT_PROMPT, a.seed + 1)
+        print(f"  {cfg.name}: {rep['params']} parameters in f32 "
+              f"({rep['param_bytes']} B) initialised in {rep['init_s']:.2f} s")
+
+        FK.flash_attention.launches = 0
+        res = S.serve(params, cfg, cuda, prompts, batch=LM_BATCH, gen_len=LM_GEN,
+                      keep_logits=True)
+        res_short = S.serve(params, cfg, cuda, short, batch=LM_BATCH,
+                            gen_len=LM_DEFAULT_GEN)
+        launches = FK.flash_attention.launches
+        batches = res.batches + res_short.batches
+        self.launches["flash_attention"] += launches
+        for label, r, n_req, plen, glen in (
+                ("B=4 S=512", res, LM_REQUESTS, LM_PROMPT, LM_GEN),
+                ("B=4 S=24 (launcher defaults)", res_short, 1, LM_DEFAULT_PROMPT,
+                 LM_DEFAULT_GEN)):
+            d = {"requests": n_req, "batch": LM_BATCH, "prompt_len": plen,
+                 "gen_len": glen, "batches": r.batches, "seconds": r.seconds,
+                 "tokens_out": r.tokens_out, "tokens_per_s": r.tokens_out / r.seconds,
+                 "prefill_ms": [x * 1e3 for x in r.prefill_s],
+                 "decode_ms_per_step": [x * 1e3 / max(glen - 1, 1) for x in r.decode_s]}
+            rep[label] = d
+            print(f"  {label}: {n_req} requests, {r.tokens_out} tokens in "
+                  f"{r.seconds:.3f} s ({d['tokens_per_s']:.1f} tok/s); prefill ms "
+                  f"{[round(x, 3) for x in d['prefill_ms']]}; decode ms a step "
+                  f"{[round(x, 3) for x in d['decode_ms_per_step']]}")
+            for row in r.done:
+                if row.shape != (glen,) or row.min() < 0 or row.max() >= cfg.vocab_size:
+                    raise AssertionError(f"{label}: token ids out of range: {row}")
+        rep["flash_launches"] = launches
+        print(f"  flash_attention launches {launches} = {cfg.num_layers} layers x "
+              f"{batches} prefill batches: {launches == cfg.num_layers * batches}")
+        if launches != cfg.num_layers * batches:
+            raise AssertionError(f"flash launches {launches} != "
+                                 f"{cfg.num_layers} x {batches}")
+
+        # the first batch again through the plain attention, same weights
+        first = np.stack(prompts[::-1][:LM_BATCH])
+        with torch.inference_mode():
+            want, _ = M.prefill(params, {"tokens": torch.from_numpy(first).cuda()},
+                                cfg, plain)
+        want = want.float().cpu().numpy()
+        got = res.logits[0][0]
+        err = float(np.abs(got - want).max())
+        atol = LM_ATOL * max(1.0, float(np.abs(want).max()))
+        rep["cuda_vs_torch"] = {
+            "max_abs_err": err, "atol": atol, "rtol": LM_RTOL,
+            "max_abs_logit": float(np.abs(want).max()),
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).mean())}
+        print(f"  prefill logits cuda vs torch: {json.dumps(rep['cuda_vs_torch'])}")
+        if not (np.isfinite(got).all() and np.allclose(got, want, rtol=LM_RTOL,
+                                                       atol=atol)):
+            raise AssertionError(f"prefill logits cuda vs torch: max err {err}")
+
+        # one prefill batch and one decode step under the profiler: where
+        # their device time goes, and the card's busy share
+        tokens = torch.from_numpy(first).cuda()
+        with torch.inference_mode():
+            _, caches = M.prefill(params, {"tokens": tokens}, cfg, cuda)
+            caches = M.pad_caches(caches, cfg, max_seq=LM_PROMPT + LM_GEN)
+        runs = {"prefill": lambda: M.prefill(params, {"tokens": tokens}, cfg, cuda),
+                "decode_step": lambda: M.decode_step(params, tokens[:, :1], caches,
+                                                     LM_PROMPT, cfg, cuda)}
+        for name, run in runs.items():
+            out = Path(a.out).parent / f"trace_lm_{name}.json"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            try:
+                with torch.inference_mode():
+                    trace, _ = device_trace(torch, run, out)
+                trace["by_name"] = dict(sorted(trace["by_name"].items(),
+                                               key=lambda kv: -kv[1]["ms"])[:12])
+            except Exception as exc:  # a diagnostic: report, do not fail
+                trace = {"not measured": repr(exc)}
+            rep[f"trace_{name}"] = trace
+            print(f"  {name} trace: {json.dumps(trace)}")
+        del caches
+
+        # the same seed again: new weights, the same bits
+        del params
+        torch.cuda.empty_cache()
+        params = M.init_params(a.seed, cfg, dtype=torch.float32, device="cuda")
+        again = S.serve(params, cfg, cuda, prompts, batch=LM_BATCH, gen_len=LM_GEN,
+                        keep_logits=True)
+        same = (all(np.array_equal(x, y) for x, y in zip(res.done, again.done))
+                and all(np.array_equal(x, y) for bx, by in zip(res.logits, again.logits)
+                        for x, y in zip(bx, by)))
+        rep["repeat_bitwise"] = same
+        print(f"  same seed again: tokens and logits bitwise equal: {same}")
+        if not same:
+            raise AssertionError("the LM run does not repeat bitwise")
+        del params
+        torch.cuda.empty_cache()
+
     @staticmethod
     def lane_partials_bytes(torch, idxs, masks, tws, window, tr, n_lanes):
         """Bytes the lane partials must move on this data: the mask plane
@@ -842,6 +1056,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core  # noqa: F401  (fails outside a checkout)
 
+    # f32 products in full f32: the plain versions are the references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -853,6 +1071,8 @@ def main(argv=None) -> int:
     smoke.phase("build", smoke.build)
     if not smoke.failures:
         smoke.phase("kernels", smoke.kernel_checks)
+        smoke.phase("lm_kernels", smoke.lm_kernels)
+        smoke.phase("lm_serve", smoke.lm_serve)
         smoke.phase("small_engine", smoke.small_engine)
         smoke.phase("main", smoke.main_path)
         if "main" not in smoke.failures:
@@ -874,15 +1094,15 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED phases {smoke.failures}", file=sys.stderr)
         return 1
     kernels = []
-    for name, (rep, shape) in KERNELS.items():
-        d = smoke.timings[name + shape]
+    timings = {**smoke.timings, **smoke.lm_timings}
+    for name, (rep, shape, source) in KERNELS.items():
+        d = timings[name + shape]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/spmv_ell.cu", "replaces": rep,
+            "name": name, "route": "cuda", "source": source, "replaces": rep,
             "launches": smoke.launches[name],
             "max_abs_err": smoke.errs[name], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-            "bound_by": "bytes", "library_ms": d["library_ms"]})
+            "bound_by": d.get("bound_by", "bytes"), "library_ms": d["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

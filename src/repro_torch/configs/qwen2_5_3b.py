@@ -1,0 +1,20 @@
+"""Qwen2.5-3B: GQA with QKV bias. [hf:Qwen/Qwen2.5-0.5B family; hf]
+36L d=2048 16H kv=2 hd=128 ff=11008 SwiGLU vocab=151936, tied embeddings."""
+
+from ..config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-3b",
+    family="dense",
+    num_layers=36,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=2,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=151936,
+    mlp_type="swiglu",
+    qkv_bias=True,
+    tie_embeddings=True,
+    rope_theta=1_000_000.0,
+)

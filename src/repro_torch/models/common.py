@@ -1,0 +1,106 @@
+"""Shared model components: RMS norm, RoPE, linear, embeddings, init.
+
+Parameters live in small ``nn.Module`` containers whose attribute names are
+the reference's pytree keys (``attn.wq.w``, ``ln1.scale``, ...), so a
+reference parameter tree loads by path (``models/params.py``).  The
+functions keep the reference's functional form, ``linear(params, x)``, and
+its dtype rules: activations in bf16, norms and RoPE in f32, weights cast
+to the activation dtype at each use.  Parameters carry no gradient: the
+port serves, it does not train yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["he_init", "RMSNorm", "Linear", "Embedding", "rmsnorm",
+           "rope_frequencies", "apply_rope", "linear", "embed", "param"]
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def he_init(gen: Optional[torch.Generator], shape, fan_in: int, *, device,
+            dtype=torch.float32) -> torch.Tensor:
+    """``N(0, 1 / fan_in)`` drawn in f32 from ``gen``, then cast; without a
+    generator, uninitialised storage (to be loaded)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(np.sqrt(1.0 / max(fan_in, 1))).to(dtype)
+
+
+# --------------------------------------------------------------------- norms
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, device, dtype=torch.float32):
+        super().__init__()
+        self.scale = param(torch.ones(d, dtype=dtype, device=device))
+
+
+def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * params.scale.float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- rope
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] integer."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)  # [D/2]
+    ang = positions[..., :, None, None].float() * freqs  # [..., S, 1, D/2]
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------- linear
+class Linear(nn.Module):
+    """``w [d_in, d_out]`` (the reference's layout: ``y = x @ w``), optional
+    bias ``b [d_out]`` initialised to zero."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
+                 gen: Optional[torch.Generator] = None, device, dtype=torch.float32):
+        super().__init__()
+        self.w = param(he_init(gen, (d_in, d_out), d_in, device=device, dtype=dtype))
+        self.b = (param(torch.zeros(d_out, dtype=dtype, device=device))
+                  if bias else None)
+
+
+def linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params.w.to(x.dtype)
+    if params.b is not None:
+        y = y + params.b.to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------- embedding
+class Embedding(nn.Module):
+    """``table [vocab, d]``, ``N(0, 0.02^2)``."""
+
+    def __init__(self, vocab: int, d: int, *, gen: Optional[torch.Generator] = None,
+                 device, dtype=torch.float32):
+        super().__init__()
+        if gen is None:
+            t = torch.empty((vocab, d), dtype=dtype, device=device)
+        else:
+            t = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                            device=device).mul_(0.02).to(dtype)
+        self.table = param(t)
+
+
+def embed(params: Embedding, tokens: torch.Tensor,
+          dtype=torch.bfloat16) -> torch.Tensor:
+    return params.table[tokens].to(dtype)

@@ -294,3 +294,79 @@ def test_service_on_the_card_ragged_multi_solo(dev, tmp_path):
             ref = eng.run(apps.get_program(p, **kw), max_iters=12)
             assert np.array_equal(f(qr.values), f(ref.values)), (p, s)
             assert qr.iterations == ref.num_iterations
+
+
+# --------------------------------------------------------- flash attention
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}  # tests/test_kernels.py
+
+
+def _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, D, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
+    return mk(B, Hq, Sq, D), mk(B, Hkv, Skv, D), mk(B, Hkv, Skv, D)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", [
+    (2, 16, 2, 24, 24, 128), (1, 16, 2, 512, 512, 128),
+    (1, 8, 1, 100, 300, 128), (2, 4, 4, 65, 65, 64), (1, 4, 2, 33, 33, 16),
+    (1, 2, 1, 70, 70, 100), (1, 4, 1, 130, 130, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, B, Hq, Hkv, Sq, Skv, D,
+                                              causal, dtype):
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v = _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, D)
+    before = FK.flash_attention.launches
+    out = FK.flash_attention(q, k, v, causal=causal)
+    assert FK.flash_attention.launches == before + 1
+    want = FK.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == want.shape
+    tol = FLASH_TOL[dtype]
+    assert torch.allclose(out.float(), want.float(), rtol=tol, atol=tol), (
+        (out.float() - want.float()).abs().max())
+
+
+def test_flash_attention_strided_views_and_rejects(dev):
+    """The model's transposed views go in without a copy and give the
+    contiguous inputs' bits; bad inputs raise on the card."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 2, 8, 2, 40, 40, 64)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    assert torch.equal(FK.flash_attention(*views), FK.flash_attention(q, k, v))
+    with pytest.raises(TypeError):
+        FK.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        FK.flash_attention(*_flash_inputs(dev, torch.float32, 1, 2, 1, 8, 8, 300))
+    with pytest.raises(ValueError, match="more queries"):
+        FK.flash_attention(torch.cat([q, q], dim=2), k, v, causal=True)
+    with pytest.raises(ValueError, match="different devices"):
+        FK.flash_attention(q.cpu(), k, v)
+
+
+def test_lm_prefill_cuda_matches_torch_on_the_card(dev):
+    """A smoke-config prefill through the kernel and through the plain path,
+    on the same weights: the kernel is launched once a layer."""
+    from repro_torch import configs
+    from repro_torch.config import smoke_config
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+
+    cfg = smoke_config(configs.get_config("qwen2.5-3b"))
+    params = M.init_params(0, cfg, dtype=torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 200), device=dev)
+    FK.flash_attention.launches = 0
+    got, gc = M.prefill(params, {"tokens": tokens}, cfg, ShardingCtx(attn_impl="cuda"))
+    assert FK.flash_attention.launches == cfg.num_layers
+    want, wc = M.prefill(params, {"tokens": tokens}, cfg, ShardingCtx(attn_impl="torch"))
+    assert FK.flash_attention.launches == cfg.num_layers
+    assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    prompts = S.make_prompts(cfg, 3, 24, seed=0)
+    a = S.serve(params, cfg, ShardingCtx(), prompts, batch=2, gen_len=6)
+    b = S.serve(params, cfg, ShardingCtx(), prompts, batch=2, gen_len=6)
+    assert all(np.array_equal(x, y) for x, y in zip(a.done, b.done))

@@ -29,6 +29,9 @@ import repro_torch.kernels.spmv_ell.ref
 import repro_torch.obs
 import repro_torch.obs.metrics
 import repro_torch.serve
+import repro_torch.models.model
+import repro_torch.launch.serve
+import repro_torch.kernels.flash_attention.ops
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 import torch
@@ -57,6 +60,25 @@ with tempfile.TemporaryDirectory() as d:
             futs = [svc.submit(p, 3, max_iters=4) for p in ("bfs", "ppr")]
         assert all(f.result(timeout=120).values.shape == (200,) for f in futs)
         assert svc.metrics_snapshot()["conservation_violations"] == []
+from repro_torch import configs
+from repro_torch.config import smoke_config
+from repro_torch.distributed.sharding import LOCAL_CTX
+from repro_torch.models import model as M
+cfg = smoke_config(configs.get_config("qwen2.5-3b"))
+params = M.init_params(0, cfg, device="cpu")
+tokens = torch.arange(10).reshape(2, 5) % cfg.vocab_size
+logits, caches = M.prefill(params, {"tokens": tokens}, cfg, LOCAL_CTX)
+caches = M.pad_caches(caches, cfg, max_seq=6)
+logits, caches = M.decode_step(params, logits.argmax(-1)[:, None], caches, 5, cfg,
+                               LOCAL_CTX)
+assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits.float()).all()
+if not torch.cuda.is_available():
+    try:
+        M.init_params(0, cfg)
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("default device ran without a card")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("isolated ok")

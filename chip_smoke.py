@@ -32,8 +32,21 @@ line):
             must match attn_impl "torch" on the same weights (rtol 2e-2,
             atol 2e-2 x max(1, max |logit|)); token ids in range; a second
             run from the same seed bitwise the same.  A prefill and a decode
-            step are traced (diagnostic).
-5. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
+            step are traced (diagnostic); one decode step's cache attention
+            is recorded, layer by layer.
+5. lm_decode  the flash-decode kernel on that real cache (B=4, Hq=16,
+            Hkv=2, D=128, bf16, S=544 with 513 valid), each layer's q and
+            cache reshaped to the kernel's [BHkv, G, D] / [BHkv, S, D]
+            layout, against the model's cache attention (bf16 within 5e-2);
+            its 36 launches are the ones counted.  Then against its plain
+            version at S=32768 (Qwen2.5-3B's context length) with ragged
+            rows and an empty one, f32 within 2e-3 and bf16 within rtol
+            5e-2, atol 5e-2 x max |output| (random values over thousands of
+            keys average to about 0.01, so a fixed 5e-2 would hold nothing),
+            and timed at S=544 and S=32768 beside its bound (K and V rows
+            of valid slots, q, o and the mask over 3.35 TB/s), the plain
+            version and one masked SDPA call.
+6. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
             prefetch_depth=2, cache_bytes=1 GiB: PageRank (5 iterations),
             SSSP and WCC on backend ``cuda``, once with
@@ -41,7 +54,7 @@ line):
             backend ``torch`` on the card (min/max bitwise, PageRank within
             rtol=1e-4, atol=1e-9).  The kernels' launch counters must equal
             the executor's dispatches.
-6. serve    the serving path on the same store: ``GraphService`` with
+7. serve    the serving path on the same store: ``GraphService`` with
             backend ``cuda``, device_resident=True, batch_shards=4,
             max_lanes=16, max_groups=2 answers 32 BFS/SSSP/PPR queries
             (max_iters=20) in one fusion set through the ragged lane
@@ -53,7 +66,7 @@ line):
             bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
             must equal the sweeps' dispatches, and the service's metrics
             must show no conservation violation.
-7. timing   each ELL kernel, its plain version and a one-call library yardstick
+8. timing   each ELL kernel, its plain version and a one-call library yardstick
             timed with CUDA events, L2 flushed before each call, on the
             main path's first batch of shards (the lane kernels at 16 and
             32 lanes), beside its bound: the bytes the function must move
@@ -61,7 +74,26 @@ line):
             the 32 B sectors of idx that hold valid slots, the message
             sectors they gather, tile_window and the output (see
             spmv_ell.cu).
-8. trace    (diagnostic: a profiler error leaves "not measured" and does
+9. sentinel ell_update(variant="sentinel") on the main path's first batch
+            (shards 0-3) with PageRank's first messages, sum/min/max: its
+            3 launches counted; partials and update bitwise the masked
+            ones for each combine; against the plain version min/max
+            bitwise, sum within rtol=1e-4, atol=1e-4 x max |partial| (the
+            messages are below 2^-21: a fixed atol would hold nothing);
+            timed beside the masked kernel, its bound the whole index
+            plane, the gathered message sectors, tile_window and the output.
+10. bloom   one BloomFilter32 per shard over the scheduler's exact source
+            sets; active sets of 2^10 and 2^16 random vertices and every
+            vertex: contains per filter and any_active_shards (48 + 3
+            launches counted) bitwise against the host filters, no shard
+            with an exact active source reported inactive; the one-launch
+            any-reduction over 16 filters at every vertex timed beside
+            its bound: the work of an in-order scan that stops once every
+            filter has a hit (its ids, touched 32 B sectors and flags over
+            3.35 TB/s, or its 32-bit operations over 67 TOP/s, the larger);
+            and over 16 empty tables of the same sizes, where it must scan
+            every id against every filter.
+11. trace   (diagnostic: a profiler error leaves "not measured" and does
             not fail the run) one resident PageRank run of 3 iterations and
             one resident fusion set of 32 queries (max_iters=5) under
             torch.profiler: each kernel's device time as the engine
@@ -94,6 +126,8 @@ L2_FLUSH_BYTES = 256 << 20  # written before each timed call; the L2 holds 50 MB
 COMBINES = ("sum", "min", "max")
 SPMV_CU = "src/repro_torch/csrc/spmv_ell.cu"
 FLASH_CU = "src/repro_torch/csrc/flash_attention.cu"
+DECODE_CU = "src/repro_torch/csrc/flash_decode.cu"
+BLOOM_CU = "src/repro_torch/csrc/bloom.cu"
 #: kernel -> the TPU kernel (or XLA step) it replaces, the shape of the
 #: timing phase that stands for it in the kernels line, and its source
 KERNELS = {
@@ -106,8 +140,19 @@ KERNELS = {
                               SPMV_CU),
     "flash_attention": ("src/repro/kernels/flash_attention/kernel.py:212",
                         " B=4 S=512", FLASH_CU),
+    "ell_partials_sentinel": ("src/repro/kernels/spmv_ell/kernel.py:177", "",
+                              SPMV_CU),
+    "bloom_contains": ("src/repro/kernels/bloom/kernel.py:44", " any", BLOOM_CU),
+    "flash_decode": ("src/repro/kernels/flash_attention/kernel.py:129",
+                     " S=32768", DECODE_CU),
 }
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+#: H100 SXM float32 outside the tensor cores; the bound of 32-bit integer
+#: work too (its published rate is no higher), so the bound stays a least time
+F32_OPS_PER_S = 67e12
+DECODE_B, DECODE_HQ, DECODE_HKV, DECODE_D = 4, 16, 2, 128  # Qwen2.5-3B
+DECODE_LONG = 32768  # the config's longest context
+BLOOM_SETS = (1 << 10, 1 << 16)  # random active sets; plus every vertex
 #: flash kernel vs its plain version (tests/test_kernels.py:125,137,148)
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 LM_ARCH = "qwen2.5-3b"
@@ -146,6 +191,8 @@ class Smoke:
         self.serve_engine = None
         self.timings = {}
         self.lm_timings = {}
+        self.entry_timings = {}
+        self.lm_decode_calls = None
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -162,8 +209,10 @@ class Smoke:
         print(f"== {name}: {'ok' if ok else 'FAILED'} in {dt:.1f} s", flush=True)
 
     # ------------------------------------------------------------ helpers
-    def compare(self, name, got, want, combine, where):
-        """Kernel vs plain: bitwise for min/max, tolerance for sum."""
+    def compare(self, name, got, want, combine, where, atol=SUM_ATOL):
+        """Kernel vs plain: bitwise for min/max, tolerance for sum (``atol``
+        for data far below 1, whose sums the default ``SUM_ATOL`` would
+        not hold)."""
         import numpy as np
 
         a = got.detach().cpu().numpy()
@@ -177,7 +226,7 @@ class Smoke:
         err = float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
         self.errs[name] = max(self.errs[name], err)
         if combine == "sum":
-            if not np.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL):
+            if not np.allclose(a, b, rtol=SUM_RTOL, atol=atol):
                 raise AssertionError(f"{name} {where} sum: max err {err}")
         elif not np.array_equal(a, b):
             raise AssertionError(f"{name} {where} {combine}: not bitwise equal "
@@ -952,6 +1001,14 @@ class Smoke:
         with torch.inference_mode():
             _, caches = M.prefill(params, {"tokens": tokens}, cfg, cuda)
             caches = M.pad_caches(caches, cfg, max_seq=LM_PROMPT + LM_GEN)
+            # one decode step with each layer's cache attention recorded,
+            # for the lm_decode phase
+            self.lm_decode_calls = record_cache_attention(
+                lambda: M.decode_step(params, tokens[:, :1], caches, LM_PROMPT,
+                                      cfg, cuda))
+        if len(self.lm_decode_calls) != cfg.num_layers:
+            raise AssertionError(f"{len(self.lm_decode_calls)} cache attentions "
+                                 f"recorded for {cfg.num_layers} layers")
         runs = {"prefill": lambda: M.prefill(params, {"tokens": tokens}, cfg, cuda),
                 "decode_step": lambda: M.decode_step(params, tokens[:, :1], caches,
                                                      LM_PROMPT, cfg, cuda)}
@@ -985,6 +1042,336 @@ class Smoke:
         del params
         torch.cuda.empty_cache()
 
+    def lm_decode(self):
+        """flash_decode on Qwen2.5-3B's real cache after lm_serve's prefill
+        (each layer's q and cache, reshaped to the kernel's layout outside
+        the counted run) against the model's cache attention; then against
+        its plain version, timed at S=544 (that cache) and S=32768."""
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import kernel as FK
+
+        rep = self.report["lm_decode"] = {}
+        if not self.lm_decode_calls:
+            raise AssertionError("lm_serve recorded no decode step")
+        with torch.inference_mode():
+            cases = []
+            for q, ck, cv, n, out in self.lm_decode_calls:
+                B, _, H, hd = q.shape
+                Smax, Hkv = ck.shape[1], ck.shape[2]
+                lay = lambda c: c.permute(0, 2, 1, 3).reshape(B * Hkv, Smax, hd).contiguous()
+                valid = (torch.arange(Smax, device=q.device) < n).expand(
+                    B * Hkv, Smax).contiguous()
+                cases.append((q.reshape(B * Hkv, H // Hkv, hd).contiguous(), lay(ck),
+                              lay(cv), valid, out.reshape(B * Hkv, H // Hkv, hd)))
+            FK.flash_decode.launches = 0
+            outs = [FK.flash_decode(*c[:4]) for c in cases]
+            torch.cuda.synchronize()
+            launches = FK.flash_decode.launches
+            if launches != len(cases):
+                raise AssertionError(f"flash_decode launches {launches} != "
+                                     f"{len(cases)} layers")
+            self.launches["flash_decode"] += launches
+            tol = FLASH_TOL["bfloat16"]
+            worst = 0.0
+            for got, c in zip(outs, cases):
+                a, b = got.float(), c[4].float()
+                if got.dtype != c[0].dtype or not torch.isfinite(a).all():
+                    raise AssertionError("flash_decode on the real cache: bad output")
+                worst = max(worst, float((a - b).abs().max()))
+                if not torch.allclose(a, b, rtol=tol, atol=tol):
+                    raise AssertionError(f"flash_decode vs the model's cache "
+                                         f"attention: max err {worst}")
+            self.errs["flash_decode"] = max(self.errs["flash_decode"], worst)
+            rep["real_cache"] = {"layers": len(cases), "launches": launches,
+                                 "shape": list(cases[0][1].shape),
+                                 "valid_len": self.lm_decode_calls[0][3],
+                                 "max_abs_err_vs_model": worst, "tol": tol}
+            print(f"  real cache: {json.dumps(rep['real_cache'])}")
+            self.decode_checks_and_timing(FK, cases[0], rep)
+        self.lm_decode_calls = None
+
+    def decode_checks_and_timing(self, FK, real, rep):
+        """The kernel against its plain version (f32, bf16; ragged rows and
+        an all-invalid row at S=32768), timed at S=544 (the real cache's
+        layer 0) and S=32768 beside its bound and one SDPA call."""
+        import numpy as np
+        torch = self.torch
+        B, Hkv, D = DECODE_B, DECODE_HKV, DECODE_D
+        G, BH = DECODE_HQ // Hkv, DECODE_B * DECODE_HKV
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(self.args.seed)
+        rng = np.random.default_rng(self.args.seed)
+        lens = rng.integers(1, DECODE_LONG + 1, B)
+        lens[1] = 0  # an all-invalid batch row
+        valid = (torch.arange(DECODE_LONG, device="cuda")[None, :]
+                 < torch.from_numpy(np.repeat(lens, Hkv)).cuda()[:, None])
+        mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+        synth = {dt: (mk(BH, G, D).to(dt), mk(BH, DECODE_LONG, D).to(dt),
+                      mk(BH, DECODE_LONG, D).to(dt), valid)
+                 for dt in (torch.float32, torch.bfloat16)}
+        rep["checks"] = []
+        where = f"S={DECODE_LONG} ragged"
+        for dt, x in synth.items():
+            got, want = FK.flash_decode(*x).float(), FK.flash_decode_plain(*x).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = FLASH_TOL[str(dt).split(".")[1]]
+            # the outputs average thousands of random values (about 0.01):
+            # scale bf16's atol to them, else an all-zero output would pass
+            atol = tol if dt == torch.float32 else tol * float(want.abs().max())
+            self.errs["flash_decode"] = max(self.errs["flash_decode"], err)
+            rep["checks"].append({"dtype": str(dt), "where": where, "max_abs_err": err,
+                                  "rtol": tol, "atol": atol})
+            if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=tol,
+                                                                   atol=atol):
+                raise AssertionError(f"flash_decode {dt} {where}: max err {err}")
+            if got[Hkv:2 * Hkv].any():
+                raise AssertionError("flash_decode: an all-invalid row is not 0")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for label, (q, k, v, vd) in ((f"S={real[1].shape[1]}", real[:4]),
+                                     (f"S={DECODE_LONG}", synth[torch.bfloat16])):
+            S = k.shape[1]
+            qs = q.view(B, Hkv * G, 1, D)
+            ks, vs = k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
+            mask = vd.view(B, Hkv, 1, 1, S).expand(B, Hkv, G, 1, S).reshape(B, Hkv * G, 1, S)
+            n_valid = int(vd.sum())
+            nbytes = 2 * (2 * q.numel() + 2 * n_valid * D) + vd.numel()
+            flops = 4 * G * D * n_valid
+            bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "operations": flops / BF16_FLOPS_PER_S * 1e3}
+            by = max(bound, key=bound.get)
+            d = dict(
+                ms=self.timed(lambda: FK.flash_decode(q, k, v, vd), 50),
+                plain_ms=self.timed(lambda: FK.flash_decode_plain(q, k, v, vd), 10),
+                library_ms=self.timed(lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                                                   enable_gqa=True), 50),
+                bound_ms=bound[by], bound_by=by, bytes=nbytes, flops=flops,
+                valid_slots=n_valid, splits=FK.decode_splits(S, BH, D)[0])
+            self.entry_timings[f"flash_decode {label}"] = d
+            rep[label] = d
+            print(f"  flash_decode BHkv={BH} G={G} D={D} {label} bf16: {json.dumps(d)}")
+
+    def sentinel(self):
+        """ell_update(variant="sentinel") on the main path's first batch
+        (shards 0-3) with PageRank's first messages, each combine: bitwise
+        the masked update; its kernel against its plain version and the
+        masked kernel, timed beside the masked kernel and its bound."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import ShardStore, ell_to_device
+        from repro_torch.kernels.spmv_ell import kernel as K
+        from repro_torch.kernels.spmv_ell import ops
+
+        dev = torch.device("cuda")
+        store = ShardStore(self.root)
+        meta = store.read_meta()
+        shards = [ell_to_device(store.load_shard(p, "ell"), dev) for p in range(4)]
+        first = shards[0]
+        W, tr, pad = first.window, first.tr, ops.SENTINEL_PAD
+        planes = [d.sentinel_idx() for d in shards]  # built once, as the path keeps it
+        tws = [d.tile_window for d in shards]
+        deg = meta.out_deg.astype(np.float64)
+        x = np.where(deg > 0, 1.0 / (meta.num_vertices * np.maximum(deg, 1)), 0.0)
+        msgs = ops.stage_messages(x.astype(np.float32), first.num_windows * W, dev)
+        torch.cuda.synchronize()
+        K.ell_partials_sentinel.launches = 0
+        acc = {c: ops.ell_update_batched(shards, msgs, c, variant="sentinel")
+               for c in COMBINES}
+        torch.cuda.synchronize()
+        launches = K.ell_partials_sentinel.launches
+        if launches != len(COMBINES):
+            raise AssertionError(f"sentinel launches {launches} != {len(COMBINES)}")
+        self.launches["ell_partials_sentinel"] += launches
+        rep = self.report["sentinel"] = {"launches": launches}
+        for c in COMBINES:
+            masked = ops.ell_update_batched(shards, msgs, c)
+            table = ops.extend_windows(msgs, W, c)
+            part = K.ell_partials_sentinel(planes, tws, table, window=W + pad, tr=tr,
+                                           combine=c)
+            plain = K.ell_partials_sentinel_plain(planes, tws, table, window=W + pad,
+                                                  tr=tr, combine=c)
+            # PageRank's messages are below 2^-21, so a fixed atol would hold
+            # nothing: scale it to the data (min/max are held bitwise)
+            atol = SUM_RTOL * float(plain.abs().max()) if c == "sum" else 0.0
+            self.compare("ell_partials_sentinel", part, plain, c, "main batch", atol)
+            self.compare("ell_partials_sentinel", acc[c], K.segment_combine_plain(
+                plain, [d.perm for d in shards], [d.row_ptr for d in shards], c),
+                c, "update vs plain", atol)
+            mpart = K.ell_partials_masked([d.idx for d in shards],
+                                          [d.mask for d in shards], tws, msgs,
+                                          window=W, tr=tr, combine=c)
+            # one templated body: the same slots in the same order
+            if not (torch.equal(part, mpart) and torch.equal(acc[c], masked)):
+                raise AssertionError(f"sentinel {c} is not bitwise the masked update")
+            if c == "sum":
+                rep["sum_atol"] = atol
+        print(f"  sentinel == masked (partials and update) bitwise for "
+              f"{', '.join(COMBINES)}; against the plain version min/max bitwise, "
+              f"sum within rtol {SUM_RTOL}, atol {rep['sum_atol']:.3g}")
+        table = ops.extend_windows(msgs, W, "sum")
+        kw = dict(window=W + pad, tr=tr, combine="sum")
+        mkw = dict(window=W, tr=tr, combine="sum")
+        masks = [d.mask for d in shards]
+        idxs = [d.idx for d in shards]
+        plane_bytes = sum(p.numel() * p.element_size() for p in planes)
+        nbytes = self.sentinel_bytes(torch, planes, masks, tws, W, pad, tr)
+        d = dict(
+            ms=self.timed(lambda: K.ell_partials_sentinel(planes, tws, table, **kw), 20),
+            plain_ms=self.timed(lambda: K.ell_partials_sentinel_plain(
+                planes, tws, table, **kw), 3),
+            library_ms=None, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", plane_bytes=plane_bytes,
+            plane_dtype=str(planes[0].dtype),
+            masked_ms=self.timed(lambda: K.ell_partials_masked(
+                idxs, masks, tws, msgs, **mkw), 20),
+            masked_bound_ms=self.partials_bytes(torch, idxs, masks, tws, W, tr)
+            / HBM_BYTES_PER_S * 1e3,
+            staging_ms=self.timed(lambda: ops.extend_windows(msgs, W, "sum"), 20))
+        self.entry_timings["ell_partials_sentinel"] = d
+        rep["timing"] = d
+        print(f"  ell_partials_sentinel (shards 0-3, sum): {json.dumps(d)}")
+
+    @staticmethod
+    def sentinel_bytes(torch, planes, masks, tws, window, pad, tr):
+        """Bytes the sentinel partials must move on this data: the whole
+        index plane, the 32 B message sectors its slots gather in the
+        extended table (the valid slots' and the identity sector of each
+        window with a padding slot), tile_window and 4 B out per row."""
+        ext = window + pad
+        total, sectors = 0, []
+        for plane, mask, tw in zip(planes, masks, tws):
+            total += plane.numel() * plane.element_size() + 4 * tw.numel() + 4 * plane.shape[0]
+            r, c = mask.nonzero(as_tuple=True)
+            sectors.append((tw.long()[r // tr] * ext + plane[r, c].long()) // 8)
+            padded = (~mask.all(dim=1)).nonzero(as_tuple=True)[0]
+            sectors.append((tw.long()[padded // tr] * ext + window) // 8)
+        return total + 32 * torch.unique(torch.cat(sectors)).numel()
+
+    def bloom(self):
+        """Shard filters (BloomFilter32 over each shard's exact sources, as
+        the scheduler keeps them) against random active sets and every
+        vertex: contains and any_active_shards bitwise against the host
+        filters, no truly active shard skipped; timed at every vertex."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import ShardStore, VSWEngine
+        from repro_torch.core.bloom import BloomFilter32
+        from repro_torch.kernels.bloom import kernel as BK
+        from repro_torch.kernels.bloom import ops as bops
+
+        if self.serve_engine is not None:
+            exact = self.serve_engine.scheduler.exact_sources
+        else:  # the scheduler scans the store when an engine opens
+            with VSWEngine.from_store(self.root, backend="cuda", device="cuda",
+                                      cache_bytes=0) as eng:
+                exact = eng.scheduler.exact_sources
+        nv = ShardStore(self.root).read_meta().num_vertices
+        t0 = time.perf_counter()
+        filters = [BloomFilter32.build(e) for e in exact]
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(self.args.seed)
+        sets = {n: rng.choice(nv, n, replace=False).astype(np.int32) for n in BLOOM_SETS}
+        sets[nv] = np.arange(nv, dtype=np.int32)  # PageRank's first iteration
+        torch.cuda.synchronize()
+        BK.bloom_contains.launches = 0
+        got = {n: ([bops.contains(f, ids) for f in filters],
+                   bops.any_active_shards(filters, ids)) for n, ids in sets.items()}
+        launches = BK.bloom_contains.launches
+        want_launches = len(sets) * (len(filters) + -(-len(filters) // BK.MAX_FILTERS))
+        if launches != want_launches:
+            raise AssertionError(f"bloom launches {launches} != {want_launches}")
+        self.launches["bloom_contains"] += launches
+        rep = self.report["bloom"] = {
+            "filters": len(filters), "build_s": build_s, "launches": launches,
+            "items": [int(f.n_items) for f in filters],
+            "table_bytes": [int(f.words.nbytes) for f in filters], "sets": {}}
+        for n, ids in sets.items():
+            bits, active = got[n]
+            for f, b in zip(filters, bits):
+                if not np.array_equal(b, f.contains(ids)):
+                    raise AssertionError(f"bloom contains n={n}: not the host filter's")
+            host = np.array([f.any_member(ids) for f in filters])
+            truly = np.array([np.isin(ids, e).any() for e in exact])
+            if not np.array_equal(active, host):
+                raise AssertionError(f"any_active_shards n={n}: {active} != host {host}")
+            if (truly & ~active).any():
+                raise AssertionError(f"any_active_shards n={n}: a truly active shard "
+                                     f"reported inactive")
+            rep["sets"][n] = {"active": int(active.sum()), "truly_active": int(truly.sum()),
+                              "member_share": float(np.mean([b.mean() for b in bits]))}
+        print(f"  {len(filters)} filters ({sum(rep['table_bytes'])} B) built in "
+              f"{build_s:.1f} s; launches {launches}; {json.dumps(rep['sets'])}")
+        staged = bops.stage_filters(filters, "cuda")
+        items = torch.from_numpy(sets[nv]).cuda()
+        kw = dict(num_bits=staged.num_bits, num_hashes=staged.num_hashes)
+        out = BK.bloom_contains(staged.words, items, reduce_any=True, **kw)
+        self.errs["bloom_contains"] = float(
+            (out != BK.bloom_contains_plain(staged.words, items, reduce_any=True,
+                                            **kw)).sum())
+        if self.errs["bloom_contains"]:
+            raise AssertionError("bloom kernel != plain version")
+        nbytes, ops_n, probes, scanned = self.bloom_work(torch, staged, items)
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": ops_n / F32_OPS_PER_S * 1e3}
+        by = max(bound, key=bound.get)
+        d = dict(
+            ms=self.timed(lambda: BK.bloom_contains(staged.words, items,
+                                                    reduce_any=True, **kw), 20),
+            plain_ms=self.timed(lambda: BK.bloom_contains_plain(
+                staged.words, items, reduce_any=True, **kw), 3),
+            library_ms=None, bound_ms=bound[by], bound_by=by, bytes=nbytes,
+            operations=ops_n, probes=probes, ids_scanned=scanned,
+            contains_one_filter_ms=self.timed(lambda: BK.bloom_contains(
+                staged.words[0], items, num_bits=staged.num_bits[0],
+                num_hashes=staged.num_hashes[0]), 20))
+        # the other extreme: empty tables of the same sizes, so no filter is
+        # ever hit and the scan reads every id against every filter
+        empty = [torch.zeros(w.numel(), dtype=torch.int32, device=w.device)
+                 for w in staged.words]
+        if BK.bloom_contains(empty, items, reduce_any=True, **kw).any():
+            raise AssertionError("bloom any: an empty filter reported hit")
+        e_bytes, e_ops, _, _ = self.bloom_work(torch, bops.DeviceFilters(
+            empty, staged.num_bits, staged.num_hashes), items)
+        d["full_scan_ms"] = self.timed(lambda: BK.bloom_contains(
+            empty, items, reduce_any=True, **kw), 20)
+        d["full_scan_bound_ms"] = max(e_bytes / HBM_BYTES_PER_S,
+                                      e_ops / F32_OPS_PER_S) * 1e3
+        self.entry_timings["bloom_contains any"] = d
+        rep["timing"] = d
+        print(f"  bloom_contains any, {len(filters)} filters, n={nv}: {json.dumps(d)}")
+
+    @staticmethod
+    def bloom_work(torch, staged, items):
+        """What the any-reduction needs on this data: an in-order scan of
+        the ids may stop at the id that gives the last filter its first hit
+        (it reads every id when some filter has none), and probes each
+        filter, up to each id's first clear bit, only until that filter's
+        own first hit.  Returns bytes (the ids scanned, each touched 32 B
+        word sector once, one flag a filter), integer operations (8 to hash
+        an id, 6 a probe), the probes and the ids scanned."""
+        from repro_torch.kernels.bloom.ref import (bloom_contains_ref, hash2_u32,
+                                                   words_as_int64)
+
+        filters = list(zip(staged.words, staged.num_bits, staged.num_hashes))
+        n, upto = items.numel(), []  # ids each filter is probed at
+        for w, nb, nh in filters:
+            first = bloom_contains_ref(w, items, num_bits=nb, num_hashes=nh).nonzero()
+            upto.append(int(first[0, 0]) + 1 if first.numel() else n)
+        scanned = max(upto)
+        h1, h2 = hash2_u32(items[:scanned])
+        nbytes, probes = 4 * scanned + len(filters), 0
+        for (w, nb, nh), m in zip(filters, upto):
+            table = words_as_int64(w)
+            live = torch.arange(m, device=items.device)
+            sectors = []
+            for i in range(nh):  # the ids whose probes so far all hit
+                pos = (h1[live] + i * h2[live]) & (nb - 1)
+                probes += pos.numel()
+                sectors.append(torch.unique(pos >> 8))  # 256 bits = one 32 B sector
+                live = live[((table[pos >> 5] >> (pos & 31)) & 1) != 0]
+            nbytes += 32 * torch.unique(torch.cat(sectors)).numel()
+        return nbytes, 8 * scanned + 6 * probes, probes, scanned
+
     @staticmethod
     def lane_partials_bytes(torch, idxs, masks, tws, window, tr, n_lanes):
         """Bytes the lane partials must move on this data: the mask plane
@@ -1013,6 +1400,27 @@ def settle(svc, sweeps0, timeout=120.0):
     while svc.stats()["sweeps"] == sweeps0 and time.monotonic() < deadline:
         time.sleep(0.005)
     return svc.stats()["sweeps"] - sweeps0
+
+
+def record_cache_attention(run):
+    """Run ``run()`` with the model's cache attention recorded: for each
+    call (one a layer of a decode step) copies of its q, k/v caches, the
+    valid length and the output."""
+    from repro_torch.models import attention as A
+
+    calls, inner = [], A._attend_with_cache
+
+    def recorded(q, ck, cv, valid_len):
+        out = inner(q, ck, cv, valid_len)
+        calls.append((q.clone(), ck.clone(), cv.clone(), int(valid_len), out.clone()))
+        return out
+
+    A._attend_with_cache = recorded
+    try:
+        run()
+    finally:
+        A._attend_with_cache = inner
+    return calls
 
 
 def device_trace(torch, run, trace_path):
@@ -1073,11 +1481,14 @@ def main(argv=None) -> int:
         smoke.phase("kernels", smoke.kernel_checks)
         smoke.phase("lm_kernels", smoke.lm_kernels)
         smoke.phase("lm_serve", smoke.lm_serve)
+        smoke.phase("lm_decode", smoke.lm_decode)
         smoke.phase("small_engine", smoke.small_engine)
         smoke.phase("main", smoke.main_path)
         if "main" not in smoke.failures:
             smoke.phase("serve", smoke.serve)
             smoke.phase("timing", smoke.timing)
+            smoke.phase("sentinel", smoke.sentinel)
+            smoke.phase("bloom", smoke.bloom)
             smoke.phase("trace", smoke.trace)
     if smoke.serve_engine is not None:
         smoke.serve_engine.close()
@@ -1094,7 +1505,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED phases {smoke.failures}", file=sys.stderr)
         return 1
     kernels = []
-    timings = {**smoke.timings, **smoke.lm_timings}
+    timings = {**smoke.timings, **smoke.lm_timings, **smoke.entry_timings}
     for name, (rep, shape, source) in KERNELS.items():
         d = timings[name + shape]
         kernels.append({

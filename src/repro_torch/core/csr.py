@@ -395,6 +395,8 @@ class DeviceEll:
     tile_window: torch.Tensor  # int32 [n_ell // tr]
     perm: torch.Tensor  # int32 [n_ell]; the first row_ptr[-1] entries are used
     row_ptr: torch.Tensor  # int32 [rows + 1]
+    _sentinel_idx: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def rows(self) -> int:
@@ -411,6 +413,18 @@ class DeviceEll:
     @property
     def device(self) -> torch.device:
         return self.idx.device
+
+    def sentinel_idx(self) -> torch.Tensor:
+        """The index plane of the sentinel layout: ``idx`` with every
+        padding slot pointing at column ``window``, the first identity slot
+        past its window.  int16 while ``window`` fits it, else int32.
+        Built on the shard's device at first use and kept."""
+        if self._sentinel_idx is None:
+            dtype = torch.int16 if self.window <= 32767 else torch.int32
+            self._sentinel_idx = torch.where(
+                self.mask, self.idx.to(dtype),
+                torch.tensor(self.window, dtype=dtype, device=self.device))
+        return self._sentinel_idx
 
     def padding_ratio(self) -> float:
         """Fraction of ELL slots that are padding."""

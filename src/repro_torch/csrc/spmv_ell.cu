@@ -1,6 +1,6 @@
 // Windowed row-split ELL pull-update for Hopper (sm_90a): the VSW hot loop.
 //
-// Four entry points, each a plain C function that launches on the caller's
+// Five entry points, each a plain C function that launches on the caller's
 // stream, allocates nothing and returns cudaGetLastError().  All take a
 // batch of up to kMaxBatch shards as tables of per-shard pointers, passed
 // by value as a __grid_constant__ parameter, so a batch is one launch and
@@ -31,6 +31,28 @@
 //   2^21 vertices) sits in L2.  A thread folds its slots in ascending
 //   order and a fixed xor-shuffle tree folds the threads of a row, so a
 //   result never changes from run to run or with the batch.
+//
+// ell_partials_sentinel  replaces the TPU kernel
+//     src/repro/kernels/spmv_ell/kernel.py::ell_partials_sentinel
+//   The masked update with no mask plane: idx points every padding slot at
+//   an identity slot appended to its window (the caller stages messages as
+//   [num_windows, window] with window = W + pad and the identity from
+//   column W on), so partial[r] = COMBINE over ALL slots s of
+//   msgs[tile_window[r / tr] * window + idx[r, s]].
+//   Bound: memory.  Without a mask the function must read the whole idx
+//   plane (2 B a slot at W <= 32767, else 4 B), the message sectors its
+//   slots gather (the valid slots' and each window's identity sector),
+//   tile_window and one float out per row.  Where most slots are padding
+//   that is more than the masked kernel moves: its 1 B mask plane plus
+//   only the idx sectors of set slots.
+//   Design: the masked kernel's body with the mask test compiled out (a
+//   template flag): the same row over K/16 threads, 16 indices a 32 B
+//   load, the same ascending fold and xor-shuffle tree.  A padding slot
+//   folds the identity, which leaves every partial's bits unchanged
+//   (x + 0 == x for the sum, which never holds -0; fminf/fmaxf with
+//   +inf/-inf), so sentinel partials are bitwise the masked partials on
+//   the same slots, for all three combines.  The identity slots of a
+//   window share one sector, which stays in L1.
 //
 // ell_partials_lanes  replaces both the vmapped TPU kernel of the lane
 //     update (src/repro/kernels/spmv_ell/ops.py::_update_lanes_jit) and the
@@ -192,7 +214,7 @@ __device__ __forceinline__ int shard_of(const T* first, int n, long long r) {
   return s;
 }
 
-template <typename IdxT, int OP, int NL>
+template <typename IdxT, int OP, int NL, bool MASKED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
                         const float* __restrict__ msgs,
@@ -214,7 +236,7 @@ ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
     table = msgs + static_cast<long long>(__ldg(a.tile_window[s] + r / tr)) *
                        window * la.stride;
     ri = static_cast<const IdxT*>(a.idx[s]) + r * k;
-    rm = a.mask[s] + r * k;
+    if constexpr (MASKED) rm = a.mask[s] + r * k;
   }
   const int n_lanes = OP == kPerLane ? la.n_lanes : 1;
   for (int l0 = 0; l0 < n_lanes; l0 += NL) {
@@ -227,15 +249,21 @@ ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
     }
     if (live) {
       for (int c = sub * kSlotsPerLane; c < k; c += lanes_per_row * kSlotsPerLane) {
-        const uint4 m = __ldg(reinterpret_cast<const uint4*>(rm + c));
-        if ((m.x | m.y | m.z | m.w) == 0u) continue;
+        uint32_t mw[4] = {~0u, ~0u, ~0u, ~0u};  // no mask: every slot folds
+        if constexpr (MASKED) {
+          const uint4 m = __ldg(reinterpret_cast<const uint4*>(rm + c));
+          if ((m.x | m.y | m.z | m.w) == 0u) continue;
+          mw[0] = m.x;
+          mw[1] = m.y;
+          mw[2] = m.z;
+          mw[3] = m.w;
+        }
         constexpr int kVecs = kSlotsPerLane * sizeof(IdxT) / sizeof(int4);
         int4 q[kVecs];
 #pragma unroll
         for (int v = 0; v < kVecs; ++v) q[v] = __ldg(reinterpret_cast<const int4*>(ri + c) + v);
         IdxT j[kSlotsPerLane];
         memcpy(j, q, sizeof(q));
-        const uint32_t mw[4] = {m.x, m.y, m.z, m.w};
 #pragma unroll
         for (int t = 0; t < kSlotsPerLane; ++t) {
           if ((mw[t / 4] >> (8 * (t % 4))) & 0xffu) {
@@ -262,7 +290,7 @@ ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
   }
 }
 
-template <typename IdxT, int OP, int NL>
+template <typename IdxT, int OP, int NL, bool MASKED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ell_partials_scalar_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
                            const float* __restrict__ msgs,
@@ -276,7 +304,7 @@ ell_partials_scalar_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
   const float* table = msgs + static_cast<long long>(__ldg(a.tile_window[s] + r / tr)) *
                                   window * la.stride;
   const IdxT* ri = static_cast<const IdxT*>(a.idx[s]) + r * k;
-  const uint8_t* rm = a.mask[s] + r * k;
+  const uint8_t* rm = MASKED ? a.mask[s] + r * k : nullptr;
   const int n_lanes = OP == kPerLane ? la.n_lanes : 1;
   for (int l0 = 0; l0 < n_lanes; l0 += NL) {
     int op[NL];
@@ -287,7 +315,7 @@ ell_partials_scalar_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
       acc[i] = identity_of<OP>(op[i]);
     }
     for (int t = lane; t < k; t += 32) {
-      if (__ldg(rm + t)) {
+      if (!MASKED || __ldg(rm + t)) {
         // clipped, as the TPU kernel's gather
         const int col = min(max(static_cast<int>(__ldg(ri + t)), 0), window - 1);
         float v[NL];
@@ -356,7 +384,7 @@ segment_combine_kernel(const __grid_constant__ CombineArgs a, LaneArgs la,
   }
 }
 
-template <typename IdxT, int OP, int NL>
+template <typename IdxT, int OP, int NL, bool MASKED>
 void launch_partials(const PartialsArgs& a, const LaneArgs& la, const float* x,
                      float* o, int k, int tr, int window, int lanes_per_row,
                      cudaStream_t stream) {
@@ -365,28 +393,28 @@ void launch_partials(const PartialsArgs& a, const LaneArgs& la, const float* x,
   if (lanes_per_row > 0) {
     const long long per_block = static_cast<long long>(kWarpsPerBlock) * (32 / lanes_per_row);
     const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
-    ell_partials_vec_kernel<IdxT, OP, NL><<<grid, block, 0, stream>>>(
+    ell_partials_vec_kernel<IdxT, OP, NL, MASKED><<<grid, block, 0, stream>>>(
         a, la, x, o, k, tr, window, lanes_per_row);
   } else {
     const dim3 grid(static_cast<unsigned>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-    ell_partials_scalar_kernel<IdxT, OP, NL><<<grid, block, 0, stream>>>(
+    ell_partials_scalar_kernel<IdxT, OP, NL, MASKED><<<grid, block, 0, stream>>>(
         a, la, x, o, k, tr, window);
   }
 }
 
-template <typename IdxT>
+template <typename IdxT, bool MASKED>
 void launch_single(const PartialsArgs& a, const LaneArgs& la, const float* x,
                    float* o, int k, int tr, int window, int lanes_per_row,
                    int combine, cudaStream_t stream) {
   switch (combine) {
     case kSum:
-      launch_partials<IdxT, kSum, 1>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kSum, 1, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
     case kMin:
-      launch_partials<IdxT, kMin, 1>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kMin, 1, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
     default:
-      launch_partials<IdxT, kMax, 1>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kMax, 1, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
   }
 }
@@ -397,13 +425,13 @@ void launch_lanes(const PartialsArgs& a, const LaneArgs& la, const float* x,
                   int nl, cudaStream_t stream) {
   switch (nl) {
     case 1:
-      launch_partials<IdxT, kPerLane, 1>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kPerLane, 1, true>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
     case 4:
-      launch_partials<IdxT, kPerLane, 4>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kPerLane, 4, true>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
     default:
-      launch_partials<IdxT, kPerLane, 8>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kPerLane, 8, true>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
   }
 }
@@ -417,7 +445,7 @@ bool fill_partials(PartialsArgs* a, const void* const* idx,
   for (int s = 0; s < n_shards; ++s) {
     if (n_ell[s] <= 0) return false;
     a->idx[s] = idx[s];
-    a->mask[s] = static_cast<const uint8_t*>(mask[s]);
+    a->mask[s] = mask ? static_cast<const uint8_t*>(mask[s]) : nullptr;
     a->tile_window[s] = static_cast<const int32_t*>(tile_window[s]);
     a->row0[s + 1] = a->row0[s] + n_ell[s];
   }
@@ -502,9 +530,37 @@ extern "C" int ell_partials_masked(const void* const* idx,
   auto s = static_cast<cudaStream_t>(stream);
   const int p = lanes_per_row(k, vec);
   if (idx_bytes == 2) {
-    launch_single<int16_t>(a, la, x, o, k, tr, window, p, combine, s);
+    launch_single<int16_t, true>(a, la, x, o, k, tr, window, p, combine, s);
   } else {
-    launch_single<int32_t>(a, la, x, o, k, tr, window, p, combine, s);
+    launch_single<int32_t, true>(a, la, x, o, k, tr, window, p, combine, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As ell_partials_masked with no mask plane: window is the extended window
+// (W + pad) and idx already points padding slots at its identity slots.
+// vec != 0: the caller checks K % 16 == 0 and 16 B alignment of every idx
+// plane.
+extern "C" int ell_partials_sentinel(const void* const* idx,
+                                     const void* const* tile_window,
+                                     const long long* n_ell, int n_shards,
+                                     int idx_bytes, int vec, const void* msgs,
+                                     void* out, int k, int tr, int window,
+                                     int combine, void* stream) {
+  PartialsArgs a;
+  if (bad_shape(n_shards, k, tr, window, idx_bytes, vec) || combine < kSum ||
+      combine > kMax || !fill_partials(&a, idx, nullptr, tile_window, n_ell, n_shards)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const LaneArgs la = single_lane();
+  const auto* x = static_cast<const float*>(msgs);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int p = lanes_per_row(k, vec);
+  if (idx_bytes == 2) {
+    launch_single<int16_t, false>(a, la, x, o, k, tr, window, p, combine, s);
+  } else {
+    launch_single<int32_t, false>(a, la, x, o, k, tr, window, p, combine, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

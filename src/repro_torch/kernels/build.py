@@ -24,7 +24,9 @@ __all__ = ["SOURCES", "build", "build_dir", "library", "nvcc_path"]
 _PKG = Path(__file__).resolve().parents[1]
 #: library name -> CUDA source, relative to the package
 SOURCES: Dict[str, str] = {"spmv_ell": "csrc/spmv_ell.cu",
-                           "flash_attention": "csrc/flash_attention.cu"}
+                           "flash_attention": "csrc/flash_attention.cu",
+                           "flash_decode": "csrc/flash_decode.cu",
+                           "bloom": "csrc/bloom.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 

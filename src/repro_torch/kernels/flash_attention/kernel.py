@@ -1,4 +1,4 @@
-"""The Hopper flash-attention kernel, with its plain version.
+"""The Hopper flash-attention kernels, with their plain versions.
 
 :func:`flash_attention` launches the kernel written in CUDA C++ in
 ``repro_torch/csrc/flash_attention.cu`` (the source note there gives its
@@ -14,9 +14,18 @@ takes any sequence length.  The output has q's dtype and shape; on the card
 it is laid out ``[B, Sq, Hq, D]`` in memory (a permuted view), so the
 model's transpose back to ``[B, S, H, D]`` is free.
 
-The wrapper takes its plain PyTorch version for CPU tensors only.  For
-CUDA tensors it launches the kernel or raises; it never falls back.  It
-counts its launches in ``flash_attention.launches``.
+:func:`flash_decode` launches the kernel in ``repro_torch/csrc/
+flash_decode.cu``.  It replaces the TPU kernel
+``repro/kernels/flash_attention/kernel.py::flash_decode``: single-token GQA
+decode over a masked cache, in the reference's layout (``q [BHkv, G, D]``,
+``k``/``v [BHkv, S, D]``, ``valid [BHkv, S]``), for any S.  On the card the
+key axis is split across CTAs and the splits merged in a fixed order
+(:func:`flash_decode_combine`'s algebra).  :func:`decode_partials_ref` and
+:func:`flash_decode_combine` are the reference's jnp helpers in torch.
+
+Each wrapper takes its plain PyTorch version for CPU tensors only.  For
+CUDA tensors it launches the kernel or raises; it never falls back.  Each
+counts its launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -29,12 +38,20 @@ import torch
 from ..build import library
 from .ref import mha_ref
 
-__all__ = ["MAX_HEAD_DIM", "flash_attention", "flash_attention_plain"]
+__all__ = ["MAX_DECODE_GROUP", "MAX_HEAD_DIM", "NEG_INF", "decode_partials_ref",
+           "decode_splits", "flash_attention", "flash_attention_plain",
+           "flash_decode", "flash_decode_combine", "flash_decode_plain"]
 
 #: largest head dim the kernel takes (its widest shared-memory tiles)
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # ``DType`` in the source
 _MAX_GRID_Y = 65535
+#: the reference's masked score: finite, so a row with no valid slot stays 0
+NEG_INF = -1e30
+#: most query heads per kv head the decode kernel takes (``kMaxG``)
+MAX_DECODE_GROUP = 32
+#: CTAs the decode kernel's first pass aims at, over all rows and splits
+_DECODE_TARGET_CTAS = 512
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -109,3 +126,124 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+# ------------------------------------------------------------------ decode
+def decode_partials_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid: torch.Tensor, *,
+                        scale: Optional[float] = None):
+    """``(o_unnormalised [BH, G, D], m [BH, G], l [BH, G])`` in f32 over
+    one shard of the cache: the partials :func:`flash_decode_combine`
+    merges.  Masked scores are ``NEG_INF`` and their ``p`` is 0."""
+    D = q.shape[-1]
+    scale = (D ** -0.5) if scale is None else scale
+    s = torch.einsum("bgd,bkd->bgk", q.float(), k.float()) * scale
+    vm = valid[:, None, :]
+    s = torch.where(vm, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bgk,bkd->bgd", p, v.float())
+    return o, m, p.sum(dim=-1)
+
+
+def flash_decode_combine(os: torch.Tensor, ms: torch.Tensor,
+                         ls: torch.Tensor) -> torch.Tensor:
+    """Merge N shards' partials (``os [N, BH, G, D]`` un-normalised, ``ms``
+    and ``ls [N, BH, G]``) into the normalised ``[BH, G, D]`` output."""
+    m_star = ms.amax(dim=0)
+    w = torch.exp(ms - m_star[None])
+    l_tot = (ls * w).sum(dim=0)
+    o_tot = (os * w[..., None]).sum(dim=0)
+    return o_tot / l_tot.clamp_min(1e-30)[..., None]
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       valid: torch.Tensor, *,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """The decode kernel's function in plain PyTorch: the partials over the
+    whole cache, normalised (``l`` clamped at 1e-30), in q's dtype."""
+    o, _, l = decode_partials_ref(q, k, v, valid, scale=scale)
+    return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def decode_splits(S: int, BH: int, D: int):
+    """``(splits, tiles_per_split, tile)``: how the decode kernel cuts S
+    keys into whole tiles of ``tile`` keys per split, about
+    ``_DECODE_TARGET_CTAS`` CTAs in all and no split empty.  Depends only
+    on the shapes, so a result never changes with the card."""
+    tile = 64 if D <= 64 else 128  # TILE_KEYS in flash_decode.cu, which checks it
+    n_tiles = -(-S // tile)
+    want = min(n_tiles, max(1, -(-_DECODE_TARGET_CTAS // BH)))
+    per = -(-n_tiles // want)
+    return -(-n_tiles // per), per, tile
+
+
+def _check_decode(q, k, v, valid) -> None:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or valid.dim() != 2:
+        raise ValueError("need q [BH, G, D], k, v [BH, S, D], valid [BH, S]")
+    BH, G, D = q.shape
+    if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if tuple(valid.shape) != (BH, k.shape[1]):
+        raise ValueError(f"valid {tuple(valid.shape)} is not [{BH}, {k.shape[1]}]")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid: dtype {valid.dtype} is not bool")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape[1] == 0:
+        raise ValueError("decode over an empty cache")
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor, *,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode attention of ``q [BH, G, D]`` (the G query heads
+    of each kv head) over ``k``, ``v [BH, S, D]`` where ``valid [BH, S]``,
+    normalised, ``[BH, G, D]`` in q's dtype (CUDA kernel on the card)."""
+    _check_decode(q, k, v, valid)
+    devs = {t.device for t in (q, k, v, valid)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return flash_decode_plain(q, k, v, valid, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"dtype {q.dtype} not in {sorted(map(str, _DTYPES))}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    BH, G, D = q.shape
+    S = k.shape[1]
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} not in [1, {MAX_HEAD_DIM}]")
+    if not 1 <= G <= MAX_DECODE_GROUP:
+        raise ValueError(f"group {G} not in [1, {MAX_DECODE_GROUP}]")
+    if not 1 <= BH <= _MAX_GRID_Y:
+        raise ValueError(f"BH = {BH} not in [1, {_MAX_GRID_Y}]")
+    splits, per, _ = decode_splits(S, BH, D)
+    out = torch.empty_like(q)
+    po = torch.empty((splits, BH, G, D), dtype=torch.float32, device=dev)
+    pm = torch.empty((splits, BH, G), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    vec = D in (64, 128, 256) and k.data_ptr() % 16 == 0
+    scale = (D ** -0.5) if scale is None else scale
+    fn = library("flash_decode").flash_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), po.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+                _DTYPES[q.dtype], BH, G, S, D, splits, per, int(vec),
+                float(scale),
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_decode launch failed: CUDA error {rc}")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

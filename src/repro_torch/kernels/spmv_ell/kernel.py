@@ -6,6 +6,11 @@ note there gives each one's bound and design):
 - :func:`ell_partials_masked` replaces the TPU kernel
   ``repro/kernels/spmv_ell/kernel.py::ell_partials_masked``: one partial
   reduction per ELL row.
+- :func:`ell_partials_sentinel` replaces the TPU kernel
+  ``repro/kernels/spmv_ell/kernel.py::ell_partials_sentinel``: the same
+  partials with no mask plane, padding slots indexing an identity slot
+  appended to each window.  It is the masked kernel's body with the mask
+  test compiled out, so its partials are bitwise the masked ones.
 - :func:`segment_combine` replaces the XLA segment combine after it
   (``repro/kernels/spmv_ell/ops.py::_segment_combine``): partials to
   destination rows, in a fixed order, without atomics.
@@ -49,7 +54,8 @@ import torch
 from ..build import library
 
 __all__ = ["IDENTITY", "LaneMessages", "ell_partials_masked",
-           "ell_partials_masked_plain", "segment_combine",
+           "ell_partials_masked_plain", "ell_partials_sentinel",
+           "ell_partials_sentinel_plain", "segment_combine",
            "segment_combine_plain", "ell_partials_lanes",
            "ell_partials_lanes_plain", "ell_partials_ragged",
            "ell_partials_ragged_plain", "segment_combine_lanes",
@@ -162,6 +168,64 @@ def ell_partials_masked(idx: Tensors, mask: Tensors, tile_window: Tensors,
 
 
 ell_partials_masked.launches = 0
+
+
+def ell_partials_sentinel_plain(idx: Tensors, tile_window: Tensors, msgs, *,
+                                window: int, tr: int,
+                                combine: str) -> torch.Tensor:
+    """Per-ELL-row partials, ``[sum n_ell]``: gather every slot, reduce
+    over K (``window`` is the extended window, identity slots included)."""
+    out = []
+    for i, t in zip(_as_list(idx), _as_list(tile_window)):
+        mask = torch.ones(i.shape, dtype=torch.bool, device=i.device)
+        out.append(_partials_one(i, mask, t, msgs, window, tr, combine))
+    return torch.cat(out)
+
+
+def ell_partials_sentinel(idx: Tensors, tile_window: Tensors, msgs, *,
+                          window: int, tr: int, combine: str) -> torch.Tensor:
+    """Per-ELL-row partials with no mask plane, ``[sum n_ell]`` float32
+    (CUDA kernel on the card).
+
+    Per shard: ``idx`` int16/int32 ``[n_ell, K]`` indices into the
+    extended window, padding slots pointing at an identity slot,
+    ``tile_window`` int32 ``[n_ell // tr]``; ``msgs`` float32
+    ``[num_windows * window]`` (``window`` = W + pad, the identity from
+    column W of each window on) is shared.
+    """
+    idx, tile_window = _as_list(idx), _as_list(tile_window)
+    if not idx or len(idx) != len(tile_window):
+        raise ValueError("need one idx and tile_window per shard")
+    if _on_cpu(*idx, *tile_window, msgs):
+        return ell_partials_sentinel_plain(idx, tile_window, msgs,
+                                           window=window, tr=tr,
+                                           combine=combine)
+    _check(msgs, "msgs", (torch.float32,), 1)
+    if msgs.numel() % window:
+        raise ValueError("msgs do not cover whole windows")
+    k = _check_ell(idx, None, tile_window, msgs, tr)
+    vec = k % _SLOTS_PER_LANE == 0 and all(t.data_ptr() % 16 == 0 for t in idx)
+    out = torch.empty(sum(i.shape[0] for i in idx), dtype=torch.float32,
+                      device=msgs.device)
+    n_ell = (ctypes.c_longlong * len(idx))(*[i.shape[0] for i in idx])
+    fn = library("spmv_ell").ell_partials_sentinel
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(msgs.device):
+        rc = fn(_ptrs(idx), _ptrs(tile_window), n_ell, len(idx),
+                idx[0].element_size(), int(vec), msgs.data_ptr(),
+                out.data_ptr(), k, tr, window, _COMBINE_ID[combine],
+                _stream(msgs.device))
+    if rc != 0:
+        raise RuntimeError(f"ell_partials_sentinel launch failed: CUDA error {rc}")
+    ell_partials_sentinel.launches += 1
+    return out
+
+
+ell_partials_sentinel.launches = 0
 
 
 # ----------------------------------------------------------------- combine
@@ -376,7 +440,10 @@ def _lane_minor(part: torch.Tensor):
 
 
 def _check_ell(idx, mask, tile_window, msgs, tr) -> int:
-    """Shared checks of a batch's ELL planes; returns K."""
+    """Shared checks of a batch's ELL planes (``mask`` None: no mask
+    plane); returns K."""
+    if mask is None:
+        mask = [None] * len(idx)
     if not idx or not len(idx) == len(mask) == len(tile_window):
         raise ValueError("need one idx, mask and tile_window per shard")
     if len(idx) > MAX_BATCH:
@@ -385,12 +452,16 @@ def _check_ell(idx, mask, tile_window, msgs, tr) -> int:
     k = idx[0].shape[1]
     for i, m, t in zip(idx, mask, tile_window):
         _check(i, "idx", (idx[0].dtype,), 2)
-        _check(m, "mask", (torch.bool,), 2)
         _check(t, "tile_window", (torch.int32,), 1)
+        if m is not None:
+            _check(m, "mask", (torch.bool,), 2)
+            if m.shape != i.shape:
+                raise ValueError(f"mask {tuple(m.shape)} does not match idx "
+                                 f"{tuple(i.shape)}")
         rows = i.shape[0]
-        if m.shape != i.shape or i.shape[1] != k or rows == 0 or rows % tr:
-            raise ValueError(f"bad ELL shape {tuple(i.shape)} / mask "
-                             f"{tuple(m.shape)} for K={k}, tr={tr}")
+        if i.shape[1] != k or rows == 0 or rows % tr:
+            raise ValueError(f"bad ELL shape {tuple(i.shape)} for K={k}, "
+                             f"tr={tr}")
         if t.numel() * tr != rows:
             raise ValueError("tile_window does not cover the ELL rows")
     _check(msgs, "msgs", (torch.float32,), msgs.dim())

@@ -8,6 +8,16 @@ dispatch through it.  ``ell_update`` is the same for one shard.
 ``stage_messages`` copies an iteration's message array to the device once,
 padded to whole windows.
 
+``variant="sentinel"`` runs the same update through the sentinel layout
+(the reference's ``ell_update(variant="sentinel")``): no mask plane; each
+shard's :meth:`~repro_torch.core.csr.DeviceEll.sentinel_idx` points padding
+slots at an identity slot, and each call stages the messages once more
+with :data:`SENTINEL_PAD` identity slots after every window
+(:func:`extend_windows`).  The reference pads by 128 for TPU lane
+alignment; 8 floats keep every window 32 B aligned, so the gathers touch
+the sectors they touch in the masked layout.  Its results are bitwise
+the masked variant's.
+
 The serving layer's lane update (DESIGN.md §6, §9, §14) carries a lane
 axis: ``[L, |V|]`` messages, ``[L, rows]`` accumulators.
 
@@ -35,7 +45,8 @@ import torch
 from ...core.csr import DeviceEll, ragged_lane_concat, ragged_lane_pad
 from . import kernel as K
 
-__all__ = ["ell_update", "ell_update_batched", "stage_messages", "stage_lanes",
+__all__ = ["SENTINEL_PAD", "VARIANTS", "ell_update", "ell_update_batched",
+           "extend_windows", "stage_messages", "stage_lanes",
            "ell_update_lanes", "ell_update_lanes_batched",
            "ell_update_lanes_multi", "ragged_stage_lanes", "ragged_dispatch",
            "ragged_collect", "ell_update_lanes_ragged", "split_rows"]
@@ -56,6 +67,25 @@ def stage_messages(msgs: np.ndarray, n_pad: int, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+#: identity slots appended to each window in the sentinel layout
+SENTINEL_PAD = 8
+VARIANTS = ("masked", "sentinel")
+
+
+def extend_windows(msgs: torch.Tensor, window: int, combine: str) -> torch.Tensor:
+    """The staged ``[num_windows * window]`` messages as the sentinel
+    layout's ``[num_windows * (window + SENTINEL_PAD)]`` table: each window
+    followed by ``SENTINEL_PAD`` slots of the combine's identity, on the
+    same device."""
+    if msgs.dim() != 1 or msgs.numel() % window:
+        raise ValueError(f"{tuple(msgs.shape)} messages do not cover whole "
+                         f"windows of {window}")
+    ext = torch.full((msgs.numel() // window, window + SENTINEL_PAD),
+                     K.IDENTITY[combine], dtype=msgs.dtype, device=msgs.device)
+    ext[:, :window] = msgs.view(-1, window)
+    return ext.view(-1)
+
+
 def _check_batch(ells: Sequence[DeviceEll]) -> DeviceEll:
     if not ells:
         raise ValueError("empty ELL batch")
@@ -68,23 +98,33 @@ def _check_batch(ells: Sequence[DeviceEll]) -> DeviceEll:
 
 
 def ell_update_batched(ells: Sequence[DeviceEll], msgs: torch.Tensor,
-                       combine: str) -> torch.Tensor:
+                       combine: str, *, variant: str = "masked") -> torch.Tensor:
     """``acc[sum rows]``: the destination rows of every shard of ``ells``,
     in order; ``msgs`` is the staged ``[num_windows * window]`` message
     array on the same device.  Bitwise equal to one :func:`ell_update` per
-    shard, concatenated."""
+    shard, concatenated, and the same for either ``variant``."""
     first = _check_batch(ells)
-    part = K.ell_partials_masked([e.idx for e in ells], [e.mask for e in ells],
-                                 [e.tile_window for e in ells], msgs,
-                                 window=first.window, tr=first.tr,
-                                 combine=combine)
+    tws = [e.tile_window for e in ells]
+    if variant == "masked":
+        part = K.ell_partials_masked([e.idx for e in ells],
+                                     [e.mask for e in ells], tws, msgs,
+                                     window=first.window, tr=first.tr,
+                                     combine=combine)
+    elif variant == "sentinel":
+        part = K.ell_partials_sentinel(
+            [e.sentinel_idx() for e in ells], tws,
+            extend_windows(msgs, first.window, combine),
+            window=first.window + SENTINEL_PAD, tr=first.tr, combine=combine)
+    else:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     return K.segment_combine(part, [e.perm for e in ells],
                              [e.row_ptr for e in ells], combine)
 
 
-def ell_update(ell: DeviceEll, msgs: torch.Tensor, combine: str) -> torch.Tensor:
+def ell_update(ell: DeviceEll, msgs: torch.Tensor, combine: str, *,
+               variant: str = "masked") -> torch.Tensor:
     """``acc[rows]`` for one device shard."""
-    return ell_update_batched([ell], msgs, combine)
+    return ell_update_batched([ell], msgs, combine, variant=variant)
 
 
 # --------------------------------------------------------------------- lanes

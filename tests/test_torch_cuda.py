@@ -370,3 +370,151 @@ def test_lm_prefill_cuda_matches_torch_on_the_card(dev):
     a = S.serve(params, cfg, ShardingCtx(), prompts, batch=2, gen_len=6)
     b = S.serve(params, cfg, ShardingCtx(), prompts, batch=2, gen_len=6)
     assert all(np.array_equal(x, y) for x, y in zip(a.done, b.done))
+
+
+# ----------------------------------------------------------- entry kernels
+@pytest.mark.parametrize("window,k,tr", [(256, 8, 8), (512, 32, 8),
+                                         (16384, 128, 8)])
+@pytest.mark.parametrize("combine", COMBINES)
+def test_sentinel_bitwise_masked_and_batched(dev, window, k, tr, combine):
+    """Sentinel partials and updates are bitwise the masked ones, against
+    the plain version too; a batch is bitwise one launch per shard."""
+    nv, shards = _lane_shards(dev, window, k, tr)
+    x = _lane_msgs(dev, 1, shards[0].num_windows * window, combine)[0]
+    table = ops.extend_windows(x, window, combine)
+    kw = dict(window=window + ops.SENTINEL_PAD, tr=tr, combine=combine)
+    for d in shards:
+        before = K.ell_partials_sentinel.launches
+        part = K.ell_partials_sentinel(d.sentinel_idx(), d.tile_window, table, **kw)
+        assert K.ell_partials_sentinel.launches == before + 1
+        masked = K.ell_partials_masked(d.idx, d.mask, d.tile_window, x,
+                                       window=window, tr=tr, combine=combine)
+        assert torch.equal(part, masked)
+        plain = K.ell_partials_sentinel_plain(d.sentinel_idx(), d.tile_window,
+                                              table, **kw)
+        assert _close(part.cpu(), plain.cpu(), combine)
+    batched = ops.ell_update_batched(shards, x, combine, variant="sentinel")
+    single = torch.cat([ops.ell_update(d, x, combine, variant="sentinel")
+                        for d in shards])
+    assert torch.equal(batched, single)
+    assert torch.equal(batched, ops.ell_update_batched(shards, x, combine))
+
+
+def _bloom_filters(n_filters=5, seed=8):
+    from repro_torch.core.bloom import BloomFilter32
+
+    rng = np.random.default_rng(seed)
+    return [BloomFilter32.build(rng.choice(1 << 22, n, replace=False),
+                                num_hashes=h)
+            for n, h in zip(rng.integers(50, 20000, n_filters), (2, 4, 4, 7, 8) * 20)]
+
+
+def test_bloom_kernel_bitwise_plain_and_host(dev):
+    from repro_torch.kernels.bloom import kernel as BK
+    from repro_torch.kernels.bloom import ops as bops
+
+    rng = np.random.default_rng(9)
+    filters = _bloom_filters()
+    ids = np.concatenate([[0, -1, -2**31, 2**31 - 1],
+                          rng.integers(-2**31, 2**31, 10_003, dtype=np.int64)]
+                         ).astype(np.int32)
+    staged = bops.stage_filters(filters, dev)
+    items = torch.from_numpy(ids).to(dev)
+    kw = dict(num_bits=staged.num_bits, num_hashes=staged.num_hashes)
+    before = BK.bloom_contains.launches
+    bits = BK.bloom_contains(staged.words, items, **kw)
+    assert BK.bloom_contains.launches == before + 1
+    assert torch.equal(bits, BK.bloom_contains_plain(staged.words, items, **kw))
+    for p, f in enumerate(filters):
+        assert np.array_equal(bits[p].cpu().numpy(), f.contains(ids))
+        assert np.array_equal(bops.contains(f, ids, device=dev), f.contains(ids))
+    assert bops.contains(filters[0], np.array([], np.int32), device=dev).shape == (0,)
+
+
+@pytest.mark.parametrize("n_filters,n_ids", [(5, 1), (5, 3000), (70, 100_000),
+                                             (40, 2_000_000)])
+def test_any_active_one_launch_equals_per_filter(dev, n_filters, n_ids):
+    from repro_torch.kernels.bloom import kernel as BK
+    from repro_torch.kernels.bloom import ops as bops
+
+    filters = _bloom_filters(n_filters)
+    ids = np.random.default_rng(10).integers(0, 1 << 22, n_ids).astype(np.int32)
+    before = BK.bloom_contains.launches
+    out = bops.any_active_shards(filters, ids, device=dev)
+    assert BK.bloom_contains.launches == before + -(-n_filters // BK.MAX_FILTERS)
+    assert np.array_equal(out, [f.any_member(ids) for f in filters])
+    staged = bops.stage_filters(filters, dev)
+    items = torch.from_numpy(ids).to(dev)
+    loop = [bool(BK.bloom_contains(w, items, num_bits=b, num_hashes=h).any())
+            for w, b, h in zip(staged.words, staged.num_bits, staged.num_hashes)]
+    assert out.tolist() == loop
+    assert not bops.any_active_shards(filters, np.array([], np.int32), device=dev).any()
+
+
+def _decode_inputs(dev, dtype, BH, G, S, D, lens, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
+    valid = torch.arange(S)[None, :] < torch.tensor(lens)[:, None]
+    return mk(BH, G, D), mk(BH, S, D), mk(BH, S, D), valid.to(dev)
+
+
+@pytest.mark.parametrize("BH,G,S,D,lens", [
+    (8, 8, 544, 128, [513] * 8), (8, 8, 5000, 128, [1, 5000, 0, 2500, 4999, 7, 128, 129]),
+    (2, 1, 1, 128, [1, 0]), (3, 4, 384, 64, [384, 0, 100]), (2, 16, 300, 256, [300, 37]),
+    (2, 5, 77, 80, [77, 3]), (1, 32, 130, 64, [130])])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain(dev, BH, G, S, D, lens, dtype):
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, valid = _decode_inputs(dev, dtype, BH, G, S, D, lens)
+    before = FK.flash_decode.launches
+    out = FK.flash_decode(q, k, v, valid)
+    assert FK.flash_decode.launches == before + 1
+    want = FK.flash_decode_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == want.shape
+    assert torch.isfinite(out.float()).all()
+    tol = FLASH_TOL[dtype]
+    assert torch.allclose(out.float(), want.float(), rtol=tol, atol=tol), (
+        (out.float() - want.float()).abs().max())
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not out[b].any()
+    assert torch.equal(out, FK.flash_decode(q, k, v, valid))  # deterministic
+
+
+def test_entry_kernels_reject_bad_inputs(dev):
+    from repro_torch.kernels.bloom import kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, valid = _decode_inputs(dev, torch.float32, 2, 4, 16, 64, [16, 3])
+    with pytest.raises(TypeError):
+        FK.flash_decode(q.half(), k.half(), v.half(), valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, valid)
+    with pytest.raises(ValueError, match="group"):
+        FK.flash_decode(q.repeat(1, 9, 1), k, v, valid)
+    with pytest.raises(ValueError, match="different devices"):
+        FK.flash_decode(q.cpu(), k, v, valid)
+    words = torch.zeros(4, dtype=torch.int32, device=dev)
+    items = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        BK.bloom_contains(words, items.long(), num_bits=128, num_hashes=4)
+    with pytest.raises(ValueError, match="power of two"):
+        BK.bloom_contains(words, items, num_bits=96, num_hashes=4)
+    with pytest.raises(ValueError, match="table"):
+        BK.bloom_contains(words, items, num_bits=256, num_hashes=4)
+    with pytest.raises(ValueError, match="num_hashes"):
+        BK.bloom_contains(words, items, num_bits=128, num_hashes=17)
+    nv, shards = _lane_shards(dev, 256, 8, 8, n_shards=1)
+    d = shards[0]
+    table = ops.extend_windows(torch.zeros(d.num_windows * 256, device=dev), 256, "sum")
+    with pytest.raises(TypeError):
+        K.ell_partials_sentinel(d.sentinel_idx(), d.tile_window, table.double(),
+                                window=256 + ops.SENTINEL_PAD, tr=8, combine="sum")
+    with pytest.raises(ValueError, match="whole windows"):
+        K.ell_partials_sentinel(d.sentinel_idx(), d.tile_window, table[:-1],
+                                window=256 + ops.SENTINEL_PAD, tr=8, combine="sum")
+    with pytest.raises(ValueError):
+        K.ell_partials_sentinel(d.sentinel_idx()[:3], d.tile_window, table,
+                                window=256 + ops.SENTINEL_PAD, tr=8, combine="sum")

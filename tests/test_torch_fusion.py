@@ -145,8 +145,8 @@ def test_fused_min_programs_single_sweep_bitwise(tmp_path):
         assert np.array_equal(_norm(qr.values), _norm(ref.values)), (p, s)
         assert qr.iterations == ref.num_iterations
         assert qr.converged == ref.converged
+    svc.close()  # joins the worker: the sweep has booked its stats
     assert svc.stats()["sweeps"] == 1  # all three programs fused
-    svc.close()
     eng.close()
 
 
@@ -162,9 +162,9 @@ def test_interleaved_groups_single_sweep_bitwise(tmp_path):
         ref = _solo(eng, p, s, 20)
         assert np.array_equal(_norm(qr.values), _norm(ref.values)), (p, s)
         assert qr.groups == 2
+    svc.close()  # joins the worker: the sweep has booked its stats
     st = svc.stats()
     assert st["sweeps"] == 1 and st["multi_group_sweeps"] == 1
-    svc.close()
     eng.close()
 
 
@@ -189,9 +189,9 @@ def test_interleaved_groups_bitwise_ell_backends(tmp_path, backend,
         qr = f.result(timeout=240)
         ref = _solo(eng, p, s, 12)
         assert np.array_equal(_norm(qr.values), _norm(ref.values)), (p, s)
+    svc.close()  # joins the worker: the sweep has booked its stats
     assert svc.stats()["sweeps"] == 1
     assert svc.metrics_snapshot()["conservation_violations"] == []
-    svc.close()
     eng.close()
 
 
@@ -210,9 +210,9 @@ def test_retirement_and_backfill_across_groups(tmp_path):
         qr = f.result(timeout=240)
         ref = _solo(eng, p, s, 200 if p == "bfs" else 6)
         assert np.array_equal(_norm(qr.values), _norm(ref.values)), (p, s)
+    svc.close()  # joins the worker: the sweep has booked its stats
     st = svc.stats()
     assert st["sweeps"] == 1 and st["queries_completed"] == 7
-    svc.close()
     eng.close()
 
 

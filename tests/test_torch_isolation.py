@@ -32,6 +32,10 @@ import repro_torch.serve
 import repro_torch.models.model
 import repro_torch.launch.serve
 import repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.flash_attention.kernel
+import repro_torch.kernels.bloom.ops
+import repro_torch.kernels.bloom.kernel
+import repro_torch.kernels.bloom.ref
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 import torch
@@ -79,6 +83,32 @@ if not torch.cuda.is_available():
         assert "no CUDA device" in str(e)
     else:
         raise AssertionError("default device ran without a card")
+import numpy as np
+from repro_torch.core.bloom import BloomFilter32
+from repro_torch.kernels.bloom import ops as bloom_ops
+from repro_torch.kernels.flash_attention.kernel import flash_decode
+from repro_torch.kernels.spmv_ell import ops as spmv_ops
+f = BloomFilter32.build(np.arange(0, 2000, 3))
+ids = np.arange(50, dtype=np.int32)
+assert np.array_equal(bloom_ops.contains(f, ids, device="cpu"), f.contains(ids))
+assert bloom_ops.any_active_shards([f, f], ids, device="cpu").tolist() == [True, True]
+if not torch.cuda.is_available():
+    try:
+        bloom_ops.contains(f, ids)
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("default device ran without a card")
+q, k = torch.randn(4, 8, 64), torch.randn(4, 33, 64)
+out = flash_decode(q, k, k, torch.ones(4, 33, dtype=torch.bool))
+assert out.shape == (4, 8, 64) and torch.isfinite(out).all()
+from repro_torch.core import csr_to_ell, ell_to_device, preprocess
+g = rmat_graph(200, 1500, seed=3)
+d = ell_to_device(csr_to_ell(preprocess(g, num_shards=1)[1][0], 200, window=64,
+                             k=8, tr=8), "cpu")
+m = torch.rand(d.num_windows * d.window)
+assert torch.equal(spmv_ops.ell_update(d, m, "min", variant="sentinel"),
+                   spmv_ops.ell_update(d, m, "min"))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("isolated ok")

@@ -198,9 +198,11 @@ def test_service_backfills_within_one_sweep(tmp_path):
         futs = [svc.submit("bfs", s, max_iters=100) for s in (44, 40, 20, 1)]
     for f in futs:
         assert f.result(timeout=120).converged
+    # A future resolves inside its sweep, before the sweep books its stats:
+    # close() joins the worker, so the counters are final after it.
+    svc.close()
     assert svc.stats()["sweeps"] == 1
     assert svc.stats()["queries_completed"] == 4
-    svc.close()
 
 
 # --------------------------------------------------------------- threading

@@ -123,6 +123,84 @@ def test_update_matches_reference_and_oracle(rmat_shards, window, k, tr,
         assert _close(seg_ref.numpy(), got, combine)
 
 
+@pytest.mark.parametrize("window,k,tr", SHAPES)
+@pytest.mark.parametrize("combine", COMBINES)
+def test_sentinel_update_matches_reference_and_masked(rmat_shards, window, k,
+                                                      tr, combine):
+    """``variant="sentinel"`` against the reference's sentinel update (its
+    TPU kernel in interpret mode) and the oracle; bitwise the port's masked
+    update for every combine."""
+    g, shards = rmat_shards
+    msgs = _msgs(g.num_vertices, combine, seed=3)
+    for s in shards:
+        e = csr_to_ell(s, g.num_vertices, window=window, k=k, tr=tr)
+        d = ell_to_device(e, "cpu")
+        mp = torch.from_numpy(_padded(e, msgs))
+        got = ops.ell_update(d, mp, combine, variant="sentinel")
+        assert torch.equal(got, ops.ell_update(d, mp, combine))
+        pallas = np.asarray(ref_ops.ell_update(e, msgs, combine,
+                                               variant="sentinel"))
+        assert _close(got.numpy(), pallas, combine), (s.shard_id, combine)
+        assert _close(got.numpy(), update_shard_numpy(s, None, msgs, combine),
+                      combine)
+
+
+@pytest.mark.parametrize("combine", COMBINES)
+def test_sentinel_partials_match_tpu_kernel(rmat_shards, combine):
+    """The port's layout (pad 8, int16 plane) against the reference's (pad
+    128, int32 plane, ``ops.py:120-131``): the same partials."""
+    g, shards = rmat_shards
+    window, k, tr = 512, 32, 8
+    msgs = _msgs(g.num_vertices, combine, seed=4)
+    for s in shards:
+        e = csr_to_ell(s, g.num_vertices, window=window, k=k, tr=tr)
+        ext = window + 128
+        msgs_e = np.full(e.num_windows * ext, K.IDENTITY[combine], np.float32)
+        for w in range(e.num_windows):
+            lo, hi = w * window, min((w + 1) * window, msgs.shape[0])
+            msgs_e[w * ext: w * ext + (hi - lo)] = msgs[lo:hi]
+        idx32 = np.where(e.ell_mask, e.ell_idx.astype(np.int32), window)
+        want = ref_kernel.ell_partials_sentinel(
+            jnp.asarray(idx32), jnp.asarray(e.tile_window), jnp.asarray(msgs_e),
+            window=ext, tr=tr, combine=combine, interpret=True)
+        d = ell_to_device(e, "cpu")
+        plane = d.sentinel_idx()
+        assert plane.dtype == torch.int16
+        assert np.array_equal(plane.numpy().astype(np.int32), idx32)
+        table = ops.extend_windows(torch.from_numpy(_padded(e, msgs)), window,
+                                   combine)
+        got = K.ell_partials_sentinel(plane, d.tile_window, table,
+                                      window=window + ops.SENTINEL_PAD, tr=tr,
+                                      combine=combine)
+        assert _close(got.numpy(), want, combine), (s.shard_id, combine)
+        masked = K.ell_partials_masked(d.idx, d.mask, d.tile_window,
+                                       torch.from_numpy(_padded(e, msgs)),
+                                       window=window, tr=tr, combine=combine)
+        assert torch.equal(got, masked)
+
+
+def test_sentinel_layout_wide_window_and_variants():
+    """W > 32767: the sentinel index W needs an int32 plane; the extended
+    table holds the identity after each window; unknown variants fail."""
+    g = rmat_graph(80_000, 30_000, seed=3)
+    _, shards = preprocess(g, num_shards=2)
+    msgs = _msgs(g.num_vertices, "min", seed=2)
+    e = csr_to_ell(shards[0], g.num_vertices, window=1 << 16, k=16, tr=8)
+    d = ell_to_device(e, "cpu")
+    assert d.sentinel_idx().dtype == torch.int32
+    assert d.sentinel_idx() is d.sentinel_idx()  # built once
+    mp = torch.from_numpy(_padded(e, msgs))
+    assert torch.equal(ops.ell_update(d, mp, "min", variant="sentinel"),
+                       ops.ell_update(d, mp, "min"))
+    t = ops.extend_windows(torch.arange(8, dtype=torch.float32), 4, "max")
+    pad = [-np.inf] * ops.SENTINEL_PAD
+    assert t.tolist() == [0, 1, 2, 3, *pad, 4, 5, 6, 7, *pad]
+    with pytest.raises(ValueError, match="whole windows"):
+        ops.extend_windows(torch.zeros(7), 4, "sum")
+    with pytest.raises(ValueError, match="unknown variant"):
+        ops.ell_update(d, mp, "min", variant="packed")
+
+
 def test_int32_indices_wide_window():
     """W > 2^15 stores int32 indices; the update takes them unchanged."""
     g = rmat_graph(80_000, 30_000, seed=3)

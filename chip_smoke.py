@@ -19,32 +19,41 @@ line):
             ``numpy`` oracle (bitwise for min/max programs).
 3. lm_kernels  the flash-attention kernel against its plain version (GQA
             8:1, D=128; S = 24, 512, 8192, Sq < Skv, non-causal; f32 within
-            2e-3, bf16 within 5e-2, the reference's kernel tolerances), then
-            timed at B=4 S=512 and B=1 S=8192 (bf16, causal) beside its
-            bound (the larger of 4 B Hq S^2 D / 2 flops over 989 TFLOP/s and
-            q+k+v+o bytes over 3.35 TB/s), the plain version and one SDPA call.
+            2e-3, bf16 within 5e-2, the reference's kernel tolerances, and
+            bf16 also within 2^-6 x max |plain|, two bf16 ulps at the top of
+            the output's range); every bf16 call runs the tensor-core kernel
+            (tc_launches), every f32 call the scalar one.  Then timed at
+            B=4 S=512 and B=1 S=8192 (bf16, causal) beside its bound (the
+            larger of 4 B Hq S^2 D / 2 flops over 989 TFLOP/s and q+k+v+o
+            bytes over 3.35 TB/s), the plain version and one SDPA call; the
+            f32 scalar kernel is timed once at B=4 S=512.
 4. lm_serve the LM serving launcher at Qwen2.5-3B's full width and depth
             (36 layers, f32 master weights from the seed, 12.3 GB): 8
             requests of 512 tokens in batches of 4, 32 tokens each, and one
             request at the launcher's defaults (24 tokens, 16 out), with
             attn_impl "cuda".  The flash kernel's launches must equal 36 x
-            the prefill batches; the first batch's last-position logits
-            must match attn_impl "torch" on the same weights (rtol 2e-2,
-            atol 2e-2 x max(1, max |logit|)); token ids in range; a second
-            run from the same seed bitwise the same.  A prefill and a decode
-            step are traced (diagnostic); one decode step's cache attention
-            is recorded, layer by layer.
+            the prefill batches, every one on the tensor-core kernel; the
+            first batch's last-position logits must match attn_impl "torch"
+            on the same weights (rtol 2e-2, atol 2e-2 x max(1, max |logit|);
+            the error and its margin are printed); token ids in range; a
+            second run from the same seed bitwise the same.  A prefill and a
+            decode step are traced (diagnostic: the prefill's flash device
+            time and the card's busy share); one decode step's cache
+            attention is recorded, layer by layer.
 5. lm_decode  the flash-decode kernel on that real cache (B=4, Hq=16,
             Hkv=2, D=128, bf16, S=544 with 513 valid), each layer's q and
             cache reshaped to the kernel's [BHkv, G, D] / [BHkv, S, D]
             layout, against the model's cache attention (bf16 within 5e-2);
-            its 36 launches are the ones counted.  Then against its plain
-            version at S=32768 (Qwen2.5-3B's context length) with ragged
-            rows and an empty one, f32 within 2e-3 and bf16 within rtol
-            5e-2, atol 5e-2 x max |output| (random values over thousands of
-            keys average to about 0.01, so a fixed 5e-2 would hold nothing),
-            and timed at S=544 and S=32768 beside its bound (K and V rows
-            of valid slots, q, o and the mask over 3.35 TB/s), the plain
+            its 36 launches, all on the tensor-core ring kernel, are the
+            ones counted.  Then against its plain version at S=32768
+            (Qwen2.5-3B's context length) with ragged rows and an empty
+            one, f32 within 2e-3 and bf16 within rtol 5e-2, atol 5e-2 x
+            max |output| (random values over thousands of keys average to
+            about 0.01, so a fixed 5e-2 would hold nothing) and within
+            2^-6 x max |output|; bitwise the same on repeat; one device
+            kernel a call (a traced run, where the profiler works); and
+            timed at S=544 and S=32768 beside its bound (K and V rows of
+            valid slots, q, o and the mask over 3.35 TB/s), the plain
             version and one masked SDPA call.
 6. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
@@ -155,6 +164,9 @@ DECODE_LONG = 32768  # the config's longest context
 BLOOM_SETS = (1 << 10, 1 << 16)  # random active sets; plus every vertex
 #: flash kernel vs its plain version (tests/test_kernels.py:125,137,148)
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+#: bf16 outputs also within two bf16 ulps at the top of their range: the
+#: absolute 5e-2 is loose against outputs that average many values
+BF16_TOP_ULPS = 2.0 ** -6
 LM_ARCH = "qwen2.5-3b"
 LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_GEN = 8, 4, 512, 32
 LM_DEFAULT_PROMPT, LM_DEFAULT_GEN = 24, 16  # the launcher's defaults
@@ -875,11 +887,17 @@ class Smoke:
         cases = [(4, 24, 24, True), (4, 512, 512, True), (1, 8192, 8192, True),
                  (2, 200, 1000, True), (4, 512, 512, False), (2, 24, 600, False)]
         rep = self.report["lm_kernels"] = {"checks": [], "timing": {}}
+        lib = FK.library("flash_attention")
+        rep["tc_ctas_per_sm"] = {D: lib.flash_attention_tc_ctas_per_sm(D)
+                                 for D in FK.TC_HEAD_DIMS}
+        print(f"  tensor-core kernel, CTAs an SM by head dim: {rep['tc_ctas_per_sm']}")
         for dtype in (torch.float32, torch.bfloat16):
             tol = FLASH_TOL[str(dtype).split(".")[1]]
             for B, Sq, Skv, causal in cases:
                 q, k, v = qkv(B, Sq, Skv, dtype)
+                tc0 = FK.flash_attention.tc_launches
                 out = FK.flash_attention(q, k, v, causal=causal)
+                tc = FK.flash_attention.tc_launches - tc0
                 want = FK.flash_attention_plain(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 a, b = out.float(), want.float()
@@ -887,13 +905,22 @@ class Smoke:
                     raise AssertionError(f"flash {dtype} {B, Sq, Skv, causal}: "
                                          f"bad output")
                 err = float((a - b).abs().max())
+                top = BF16_TOP_ULPS * float(b.abs().max())
                 self.errs["flash_attention"] = max(self.errs["flash_attention"], err)
                 where = dict(dtype=str(dtype), B=B, Hq=16, Hkv=2, Sq=Sq, Skv=Skv,
-                             D=128, causal=causal, max_abs_err=err)
+                             D=128, causal=causal, kernel="tc" if tc else "scalar",
+                             max_abs_err=err)
+                if dtype == torch.bfloat16:
+                    where["top_ulps_bound"] = top
                 rep["checks"].append(where)
                 print(f"  flash {json.dumps(where)}")
                 if not torch.allclose(a, b, rtol=tol, atol=tol):
                     raise AssertionError(f"flash {where}: beyond {tol}")
+                if dtype == torch.bfloat16 and err > top:
+                    raise AssertionError(f"flash {where}: beyond 2^-6 x max |plain|")
+                if tc != (dtype == torch.bfloat16):
+                    raise AssertionError(f"flash {where}: the dispatch rule took "
+                                         f"the wrong kernel")
                 del q, k, v, out, want, a, b
         sdpa = torch.nn.functional.scaled_dot_product_attention
         for B, S, reps, plain_reps in ((4, 512, 20, 5), (1, 8192, 5, 2)):
@@ -911,6 +938,11 @@ class Smoke:
                 library_ms=self.timed(lambda: sdpa(q, k, v, is_causal=True,
                                                    enable_gqa=True), reps),
                 bound_ms=bound[by], bound_by=by, flops=flops, bytes=nbytes)
+            if B == 4:  # the scalar kernel once, in f32
+                qf, kf, vf = q.float(), k.float(), v.float()
+                d["scalar_f32_ms"] = self.timed(
+                    lambda: FK.flash_attention(qf, kf, vf, causal=True), reps)
+                del qf, kf, vf
             self.lm_timings[f"flash_attention B={B} S={S}"] = d
             rep["timing"][f"B={B} S={S}"] = d
             print(f"  flash_attention B={B} Hq=16 Hkv=2 S={S} D=128 bf16 causal: "
@@ -945,12 +977,13 @@ class Smoke:
         print(f"  {cfg.name}: {rep['params']} parameters in f32 "
               f"({rep['param_bytes']} B) initialised in {rep['init_s']:.2f} s")
 
-        FK.flash_attention.launches = 0
+        FK.flash_attention.launches = FK.flash_attention.tc_launches = 0
         res = S.serve(params, cfg, cuda, prompts, batch=LM_BATCH, gen_len=LM_GEN,
                       keep_logits=True)
         res_short = S.serve(params, cfg, cuda, short, batch=LM_BATCH,
                             gen_len=LM_DEFAULT_GEN)
         launches = FK.flash_attention.launches
+        tc_launches = FK.flash_attention.tc_launches
         batches = res.batches + res_short.batches
         self.launches["flash_attention"] += launches
         for label, r, n_req, plen, glen in (
@@ -971,11 +1004,16 @@ class Smoke:
                 if row.shape != (glen,) or row.min() < 0 or row.max() >= cfg.vocab_size:
                     raise AssertionError(f"{label}: token ids out of range: {row}")
         rep["flash_launches"] = launches
+        rep["flash_tc_launches"] = tc_launches
         print(f"  flash_attention launches {launches} = {cfg.num_layers} layers x "
-              f"{batches} prefill batches: {launches == cfg.num_layers * batches}")
+              f"{batches} prefill batches: {launches == cfg.num_layers * batches}; "
+              f"on the tensor-core kernel: {tc_launches}")
         if launches != cfg.num_layers * batches:
             raise AssertionError(f"flash launches {launches} != "
                                  f"{cfg.num_layers} x {batches}")
+        if tc_launches != launches:
+            raise AssertionError(f"{launches - tc_launches} flash launches off the "
+                                 f"tensor-core kernel")
 
         # the first batch again through the plain attention, same weights
         first = np.stack(prompts[::-1][:LM_BATCH])
@@ -986,8 +1024,10 @@ class Smoke:
         got = res.logits[0][0]
         err = float(np.abs(got - want).max())
         atol = LM_ATOL * max(1.0, float(np.abs(want).max()))
+        # the tightest element: |got - want| against atol + rtol |want|
+        margin = float((atol + LM_RTOL * np.abs(want) - np.abs(got - want)).min())
         rep["cuda_vs_torch"] = {
-            "max_abs_err": err, "atol": atol, "rtol": LM_RTOL,
+            "max_abs_err": err, "atol": atol, "rtol": LM_RTOL, "margin": margin,
             "max_abs_logit": float(np.abs(want).max()),
             "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).mean())}
         print(f"  prefill logits cuda vs torch: {json.dumps(rep['cuda_vs_torch'])}")
@@ -1018,6 +1058,9 @@ class Smoke:
             try:
                 with torch.inference_mode():
                     trace, _ = device_trace(torch, run, out)
+                flash = [v for k, v in trace["by_name"].items() if "flash" in k]
+                trace["flash_ms"] = sum(v["ms"] for v in flash)
+                trace["flash_launches"] = sum(v["launches"] for v in flash)
                 trace["by_name"] = dict(sorted(trace["by_name"].items(),
                                                key=lambda kv: -kv[1]["ms"])[:12])
             except Exception as exc:  # a diagnostic: report, do not fail
@@ -1063,13 +1106,16 @@ class Smoke:
                     B * Hkv, Smax).contiguous()
                 cases.append((q.reshape(B * Hkv, H // Hkv, hd).contiguous(), lay(ck),
                               lay(cv), valid, out.reshape(B * Hkv, H // Hkv, hd)))
-            FK.flash_decode.launches = 0
+            FK.flash_decode.launches = FK.flash_decode.tc_launches = 0
             outs = [FK.flash_decode(*c[:4]) for c in cases]
             torch.cuda.synchronize()
             launches = FK.flash_decode.launches
             if launches != len(cases):
                 raise AssertionError(f"flash_decode launches {launches} != "
                                      f"{len(cases)} layers")
+            if FK.flash_decode.tc_launches != launches:
+                raise AssertionError(f"{launches - FK.flash_decode.tc_launches} "
+                                     f"flash_decode launches off the ring kernel")
             self.launches["flash_decode"] += launches
             tol = FLASH_TOL["bfloat16"]
             worst = 0.0
@@ -1083,6 +1129,7 @@ class Smoke:
                                          f"attention: max err {worst}")
             self.errs["flash_decode"] = max(self.errs["flash_decode"], worst)
             rep["real_cache"] = {"layers": len(cases), "launches": launches,
+                                 "tc_launches": FK.flash_decode.tc_launches,
                                  "shape": list(cases[0][1].shape),
                                  "valid_len": self.lm_decode_calls[0][3],
                                  "max_abs_err_vs_model": worst, "tol": tol}
@@ -1111,22 +1158,45 @@ class Smoke:
                  for dt in (torch.float32, torch.bfloat16)}
         rep["checks"] = []
         where = f"S={DECODE_LONG} ragged"
+        lib = FK.library("flash_decode")
+        rep["ring_ctas_per_sm"] = {D: lib.flash_decode_ring_ctas_per_sm(D)
+                                   for D in FK.DECODE_TC_HEAD_DIMS}
+        print(f"  ring kernel, CTAs an SM by head dim: {rep['ring_ctas_per_sm']}")
         for dt, x in synth.items():
-            got, want = FK.flash_decode(*x).float(), FK.flash_decode_plain(*x).float()
+            out = FK.flash_decode(*x)
+            got, want = out.float(), FK.flash_decode_plain(*x).float()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             tol = FLASH_TOL[str(dt).split(".")[1]]
             # the outputs average thousands of random values (about 0.01):
             # scale bf16's atol to them, else an all-zero output would pass
             atol = tol if dt == torch.float32 else tol * float(want.abs().max())
+            top = BF16_TOP_ULPS * float(want.abs().max())
             self.errs["flash_decode"] = max(self.errs["flash_decode"], err)
             rep["checks"].append({"dtype": str(dt), "where": where, "max_abs_err": err,
-                                  "rtol": tol, "atol": atol})
+                                  "rtol": tol, "atol": atol, "top_ulps_bound": top})
             if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=tol,
                                                                    atol=atol):
                 raise AssertionError(f"flash_decode {dt} {where}: max err {err}")
+            if dt == torch.bfloat16 and err > top:
+                raise AssertionError(f"flash_decode {dt} {where}: max err {err} "
+                                     f"beyond 2^-6 x max |plain| = {top}")
             if got[Hkv:2 * Hkv].any():
                 raise AssertionError("flash_decode: an all-invalid row is not 0")
+            if not all(torch.equal(out, FK.flash_decode(*x)) for _ in range(3)):
+                raise AssertionError(f"flash_decode {dt}: not bitwise the same on repeat")
+        # one device kernel a call (the splits merged in the same launch)
+        x = synth[torch.bfloat16]
+        try:
+            trace, _ = device_trace(
+                torch, lambda: [FK.flash_decode(*x) for _ in range(10)],
+                Path(self.args.out).parent / "trace_flash_decode.json")
+            rep["kernels_per_call"] = trace["device_events"] / 10
+        except Exception as exc:  # a diagnostic: report, do not fail
+            rep["kernels_per_call"] = f"not measured: {exc!r}"
+        print(f"  device kernels a flash_decode call: {rep['kernels_per_call']}")
+        if isinstance(rep["kernels_per_call"], float) and rep["kernels_per_call"] != 1.0:
+            raise AssertionError(f"flash_decode: {rep['kernels_per_call']} kernels a call")
         sdpa = torch.nn.functional.scaled_dot_product_attention
         for label, (q, k, v, vd) in ((f"S={real[1].shape[1]}", real[:4]),
                                      (f"S={DECODE_LONG}", synth[torch.bfloat16])):

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``<repo>/build/lib<name>-<hash>.so``,
-where the hash covers the source and the flags, so an edited source never
-loads a stale library.  Nothing is compiled at import: the first call that
+where the hash covers the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header never loads a stale library.  Nothing is compiled at import: the first call that
 needs a library builds it (every missing library at once, one ``nvcc``
 process each, started together) and loads it with ``ctypes``.
 """
@@ -53,6 +53,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (_PKG / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted((_PKG / "csrc").glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{h}.so"
 

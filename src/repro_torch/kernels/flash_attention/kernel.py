@@ -19,18 +19,29 @@ flash_decode.cu``.  It replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_decode``: single-token GQA
 decode over a masked cache, in the reference's layout (``q [BHkv, G, D]``,
 ``k``/``v [BHkv, S, D]``, ``valid [BHkv, S]``), for any S.  On the card the
-key axis is split across CTAs and the splits merged in a fixed order
-(:func:`flash_decode_combine`'s algebra).  :func:`decode_partials_ref` and
+key axis is split across CTAs and, in the same launch, the last CTA of
+each row merges its splits in a fixed order (:func:`flash_decode_combine`'s
+algebra).  :func:`decode_partials_ref` and
 :func:`flash_decode_combine` are the reference's jnp helpers in torch.
 
+On the card each call takes one of two kernels, chosen before the launch
+by dtype, shape and layout alone (:func:`uses_tensor_cores`,
+:func:`decode_uses_tensor_cores`): bf16 calls on 16 B aligned rows at head
+dim 64 or 128 (decode: also 256, at most 16 query heads a kv head) run
+the tensor-core kernel on bf16 tiles in shared memory (``wgmma`` for
+attention, ``mma.sync`` for decode); every other call runs the scalar f32
+kernel, so f32 inputs keep f32 products.
+
 Each wrapper takes its plain PyTorch version for CPU tensors only.  For
-CUDA tensors it launches the kernel or raises; it never falls back.  Each
-counts its launches in its ``launches`` attribute.
+CUDA tensors it launches a kernel or raises; it never falls back.  Each
+counts its launches in its ``launches`` attribute, and the tensor-core
+kernel's among them in ``tc_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -38,20 +49,40 @@ import torch
 from ..build import library
 from .ref import mha_ref
 
-__all__ = ["MAX_DECODE_GROUP", "MAX_HEAD_DIM", "NEG_INF", "decode_partials_ref",
-           "decode_splits", "flash_attention", "flash_attention_plain",
-           "flash_decode", "flash_decode_combine", "flash_decode_plain"]
+__all__ = ["DECODE_TC_HEAD_DIMS", "MAX_DECODE_GROUP", "MAX_HEAD_DIM", "NEG_INF",
+           "TC_HEAD_DIMS", "decode_partials_ref", "decode_splits",
+           "decode_uses_tensor_cores", "flash_attention", "flash_attention_plain",
+           "flash_decode", "flash_decode_combine", "flash_decode_plain",
+           "uses_tensor_cores"]
 
 #: largest head dim the kernel takes (its widest shared-memory tiles)
 MAX_HEAD_DIM = 256
+#: head dims the tensor-core attention kernel is built for (at 256 its
+#: registers spill: that head dim stays on the scalar kernel)
+TC_HEAD_DIMS = (64, 128)
+#: head dims the tensor-core decode kernel is built for
+DECODE_TC_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # ``DType`` in the source
 _MAX_GRID_Y = 65535
 #: the reference's masked score: finite, so a row with no valid slot stays 0
 NEG_INF = -1e30
 #: most query heads per kv head the decode kernel takes (``kMaxG``)
 MAX_DECODE_GROUP = 32
-#: CTAs the decode kernel's first pass aims at, over all rows and splits
-_DECODE_TARGET_CTAS = 512
+#: CTAs the decode kernel aims at, over all rows and splits: two a
+#: streaming multiprocessor of an H100 (132), the ring kernel's occupancy at
+#: D = 128 (a wave; more splits only lengthen the merge)
+_DECODE_TARGET_CTAS = 264
+#: keys a decode tile, the unit of a split (``kTileKeys`` in the source)
+_DECODE_TILE = 64
+#: most tiles a split (``kMaxTiles``: the ring kernel lists them in shared
+#: memory)
+_DECODE_MAX_TILES = 256
+#: query rows of the decode kernel's tensor-core tile (``ring::kRows``)
+_DECODE_TC_GROUP = 16
+#: (device index, stream) -> the decode kernel's row tickets, zero between
+#: launches; one array a stream, so concurrent launches never share one
+_DECODE_TICKETS: dict = {}
+_DECODE_TICKETS_LOCK = threading.Lock()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,6 +108,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
                          f"({Skv}) leaves rows with no key")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Last stride 1; base pointer and every other stride 16 B aligned."""
+    esize = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * esize % 16 == 0 for st in t.stride()[:-1]))
+
+
+def uses_tensor_cores(*tensors: torch.Tensor) -> bool:
+    """The dispatch rule of :func:`flash_attention` on the card, for its q,
+    k, v and output: bf16, head dim in :data:`TC_HEAD_DIMS`, and every
+    tensor's rows 16 B aligned (last stride 1, base pointer and other
+    strides multiples of 16 B).  Such a call runs the tensor-core kernel,
+    every other call the scalar one.  Depends on dtype, shape and layout
+    only (``flash_attention_fwd_tc`` checks the same)."""
+    q = tensors[0]
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+            and all(t.dtype == q.dtype and _rows_aligned(t) for t in tensors))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -110,22 +160,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = (D ** -0.5) if scale is None else scale
     strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(),
                                        *out.stride())
-    fn = library("flash_attention").flash_attention_fwd
+    tc = uses_tensor_cores(q, k, v, out)
+    lib = library("flash_attention")
+    ptrs = [ctypes.c_void_p] * 4
+    if tc:
+        fn = lib.flash_attention_fwd_tc
+        fn.argtypes = ptrs + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        head = ()
+    else:
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ptrs + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        head = (_DTYPES[q.dtype],)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D, strides, int(causal),
-                float(scale),
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *head,
+                B, Hq, Hkv, Sq, Skv, D, strides, int(causal), float(scale),
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.tc_launches += tc
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 
 
 # ------------------------------------------------------------------ decode
@@ -167,15 +228,43 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_splits(S: int, BH: int, D: int):
-    """``(splits, tiles_per_split, tile)``: how the decode kernel cuts S
+    """``(splits, tiles_per_split, tile)``: how the decode kernels cut S
     keys into whole tiles of ``tile`` keys per split, about
-    ``_DECODE_TARGET_CTAS`` CTAs in all and no split empty.  Depends only
-    on the shapes, so a result never changes with the card."""
-    tile = 64 if D <= 64 else 128  # TILE_KEYS in flash_decode.cu, which checks it
+    ``_DECODE_TARGET_CTAS`` CTAs in all, at most ``_DECODE_MAX_TILES``
+    tiles a split and no split empty.  Both kernels take the same cut (D
+    does not change it).  Depends only on the shapes, so a result never
+    changes with the card or the kernel."""
+    tile = _DECODE_TILE
     n_tiles = -(-S // tile)
     want = min(n_tiles, max(1, -(-_DECODE_TARGET_CTAS // BH)))
-    per = -(-n_tiles // want)
+    per = min(-(-n_tiles // want), _DECODE_MAX_TILES)
     return -(-n_tiles // per), per, tile
+
+
+def decode_uses_tensor_cores(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> bool:
+    """The dispatch rule of :func:`flash_decode` on the card: bf16, head dim
+    in :data:`DECODE_TC_HEAD_DIMS`, at most 16 query heads a kv head, and
+    q, k, v 16 B aligned (they are contiguous, so their rows are too).
+    Such a call runs the ring kernel, every other call the scalar one.
+    Depends on dtype, shape and layout only (the source checks the same)."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in DECODE_TC_HEAD_DIMS
+            and q.shape[1] <= _DECODE_TC_GROUP
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def _decode_tickets(dev: torch.device, BH: int) -> torch.Tensor:
+    """The current stream's row tickets on ``dev``, at least ``BH`` of them.
+    A new array is zeroed on that stream, so it is ordered before the
+    launch that takes it; the kernel leaves every ticket at 0."""
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    with _DECODE_TICKETS_LOCK:
+        t = _DECODE_TICKETS.get(key)
+        if t is None or t.numel() < BH:
+            t = torch.zeros(max(BH, 64), dtype=torch.int32, device=dev)
+            _DECODE_TICKETS[key] = t
+        return t
 
 
 def _check_decode(q, k, v, valid) -> None:
@@ -225,25 +314,32 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"BH = {BH} not in [1, {_MAX_GRID_Y}]")
     splits, per, _ = decode_splits(S, BH, D)
     out = torch.empty_like(q)
-    po = torch.empty((splits, BH, G, D), dtype=torch.float32, device=dev)
-    pm = torch.empty((splits, BH, G), dtype=torch.float32, device=dev)
-    pl = torch.empty_like(pm)
-    vec = D in (64, 128, 256) and k.data_ptr() % 16 == 0
-    scale = (D ** -0.5) if scale is None else scale
-    fn = library("flash_decode").flash_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
+    scratch = [None] * 4  # partials and tickets, only where splits merge
     with torch.cuda.device(dev):
+        if splits > 1:
+            po = torch.empty((splits, BH, G, D), dtype=torch.float32, device=dev)
+            pm = torch.empty((splits, BH, G), dtype=torch.float32, device=dev)
+            pl = torch.empty_like(pm)
+            scratch = [po.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+                       _decode_tickets(dev, BH).data_ptr()]
+        tc = decode_uses_tensor_cores(q, k, v)
+        # 2: the ring kernel; 1: the scalar one with 16 B loads of k; 0: scalar
+        path = 2 if tc else int(D in DECODE_TC_HEAD_DIMS and k.data_ptr() % 16 == 0)
+        scale = (D ** -0.5) if scale is None else scale
+        fn = library("flash_decode").flash_decode
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), po.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-                _DTYPES[q.dtype], BH, G, S, D, splits, per, int(vec),
-                float(scale),
+                out.data_ptr(), *scratch, _DTYPES[q.dtype], BH, G, S, D, splits,
+                per, path, float(scale),
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {rc}")
     flash_decode.launches += 1
+    flash_decode.tc_launches += tc
     return out
 
 
 flash_decode.launches = 0
+flash_decode.tc_launches = 0

@@ -298,6 +298,28 @@ def test_service_on_the_card_ragged_multi_solo(dev, tmp_path):
 
 # --------------------------------------------------------- flash attention
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}  # tests/test_kernels.py
+#: bf16 outputs also within two bf16 ulps at the top of their range: the
+#: absolute 5e-2 is loose against outputs that average many values
+BF16_TOP_ULPS = 2.0 ** -6
+
+
+def _check_flash(out, want, dtype):
+    """Kernel vs plain: the reference's tolerance and, for bf16, the
+    tighter max |out - want| <= 2^-6 max |want|."""
+    a, b = out.float(), want.float()
+    assert out.dtype == dtype and out.shape == want.shape
+    assert torch.isfinite(a).all()
+    tol = FLASH_TOL[dtype]
+    err = float((a - b).abs().max())
+    assert torch.allclose(a, b, rtol=tol, atol=tol), err
+    if dtype == torch.bfloat16:
+        assert err <= BF16_TOP_ULPS * float(b.abs().max()), err
+
+
+def _misaligned(t):
+    """``t``'s values in a view 2 bytes off a 16 B boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return buf.view(t.shape).copy_(t)
 
 
 def _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, D, seed=0):
@@ -318,14 +340,44 @@ def test_flash_attention_kernel_matches_plain(dev, B, Hq, Hkv, Sq, Skv, D,
 
     q, k, v = _flash_inputs(dev, dtype, B, Hq, Hkv, Sq, Skv, D)
     before = FK.flash_attention.launches
+    before_tc = FK.flash_attention.tc_launches
     out = FK.flash_attention(q, k, v, causal=causal)
     assert FK.flash_attention.launches == before + 1
+    tc = dtype == torch.bfloat16 and D in FK.TC_HEAD_DIMS
+    assert FK.flash_attention.tc_launches == before_tc + tc
     want = FK.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert out.dtype == dtype and out.shape == want.shape
-    tol = FLASH_TOL[dtype]
-    assert torch.allclose(out.float(), want.float(), rtol=tol, atol=tol), (
-        (out.float() - want.float()).abs().max())
+    _check_flash(out, want, dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (1, 8, 1, 100, 300, 64, True), (2, 16, 2, 130, 130, 128, True),
+    (2, 16, 2, 130, 200, 128, False), (1, 4, 1, 77, 333, 256, True),
+    (1, 4, 2, 200, 70, 256, False), (2, 8, 1, 64, 64, 128, False),
+    (1, 2, 1, 1, 65, 128, True), (1, 16, 2, 700, 700, 128, True)])
+def test_flash_attention_tensor_core_path(dev, B, Hq, Hkv, Sq, Skv, D, causal):
+    """The bf16 tensor-core kernel: ragged Sq and Skv, queries as the key
+    suffix, GQA 8:1, D 64/128 (and 256, which the rule keeps on the scalar
+    kernel); the model's transposed views and a repeat bitwise the same;
+    only calls on the dispatch rule count."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v = _flash_inputs(dev, torch.bfloat16, B, Hq, Hkv, Sq, Skv, D, seed=3)
+    tc = D in FK.TC_HEAD_DIMS
+    before, before_tc = FK.flash_attention.launches, FK.flash_attention.tc_launches
+    out = FK.flash_attention(q, k, v, causal=causal)
+    assert FK.flash_attention.tc_launches == before_tc + tc
+    _check_flash(out, FK.flash_attention_plain(q, k, v, causal=causal), torch.bfloat16)
+    assert torch.equal(out, FK.flash_attention(q, k, v, causal=causal))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert torch.equal(out, FK.flash_attention(*views, causal=causal))
+    assert FK.flash_attention.tc_launches == before_tc + 3 * tc
+    # off the rule: the scalar kernel, the same function
+    off = FK.flash_attention(q, _misaligned(k), v, causal=causal)
+    _check_flash(off, out, torch.bfloat16)
+    FK.flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert FK.flash_attention.tc_launches == before_tc + 3 * tc
+    assert FK.flash_attention.launches == before + 5
 
 
 def test_flash_attention_strided_views_and_rejects(dev):
@@ -467,20 +519,63 @@ def test_flash_decode_kernel_matches_plain(dev, BH, G, S, D, lens, dtype):
     from repro_torch.kernels.flash_attention import kernel as FK
 
     q, k, v, valid = _decode_inputs(dev, dtype, BH, G, S, D, lens)
-    before = FK.flash_decode.launches
+    before, before_tc = FK.flash_decode.launches, FK.flash_decode.tc_launches
     out = FK.flash_decode(q, k, v, valid)
     assert FK.flash_decode.launches == before + 1
+    tc = dtype == torch.bfloat16 and D in FK.DECODE_TC_HEAD_DIMS and G <= 16
+    assert FK.flash_decode.tc_launches == before_tc + tc
     want = FK.flash_decode_plain(q, k, v, valid)
     torch.cuda.synchronize()
-    assert out.dtype == dtype and out.shape == want.shape
-    assert torch.isfinite(out.float()).all()
-    tol = FLASH_TOL[dtype]
-    assert torch.allclose(out.float(), want.float(), rtol=tol, atol=tol), (
-        (out.float() - want.float()).abs().max())
+    _check_flash(out, want, dtype)
     for b, n in enumerate(lens):
         if n == 0:
             assert not out[b].any()
     assert torch.equal(out, FK.flash_decode(q, k, v, valid))  # deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_fused_merge_repeats_across_streams(dev, dtype):
+    """One launch merges the splits (the last CTA of a row, by ticket):
+    bitwise the same on repeat and on two streams used in turn, whose
+    tickets are apart; an all-invalid row gives 0."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    BH, G, S, D = 8, 8, 32768, 128
+    lens = [S, 0, 1, 12345, 64, 65, S - 1, 30000]
+    q, k, v, valid = _decode_inputs(dev, dtype, BH, G, S, D, lens, seed=4)
+    assert FK.decode_splits(S, BH, D)[0] > 1
+    before = FK.flash_decode.launches
+    first = FK.flash_decode(q, k, v, valid)
+    assert FK.flash_decode.launches == before + 1
+    _check_flash(first, FK.flash_decode_plain(q, k, v, valid), dtype)
+    assert not first[1].any()
+    outs = []
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    for i in range(6):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(FK.flash_decode(q, k, v, valid))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, first)
+    assert torch.equal(first, FK.flash_decode(q, k, v, valid))
+
+
+def test_flash_decode_misaligned_views(dev):
+    """q, k or v 2 bytes off a 16 B boundary: the scalar kernel, the plain
+    version's result; the ring kernel is not launched."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, valid = _decode_inputs(dev, torch.bfloat16, 4, 8, 700, 128,
+                                    [700, 0, 333, 64], seed=5)
+    want = FK.flash_decode_plain(q, k, v, valid)
+    before_tc = FK.flash_decode.tc_launches
+    for args in ((_misaligned(q), k, v), (q, _misaligned(k), v), (q, k, _misaligned(v))):
+        assert not FK.decode_uses_tensor_cores(*args)
+        _check_flash(FK.flash_decode(*args, valid), want, torch.bfloat16)
+    assert FK.flash_decode.tc_launches == before_tc
+    _check_flash(FK.flash_decode(q, k, v, valid), want, torch.bfloat16)
+    assert FK.flash_decode.tc_launches == before_tc + 1
 
 
 def test_entry_kernels_reject_bad_inputs(dev):

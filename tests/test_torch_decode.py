@@ -186,3 +186,59 @@ def test_flash_decode_rejects_bad_inputs():
         K.flash_decode(q.double(), k, v, valid)
     with pytest.raises(ValueError):
         K.flash_decode(q, k[:, :0], v[:, :0], valid[:, :0])
+
+
+@pytest.mark.parametrize("BH,S", [(8, 544), (8, 32768), (1, 1 << 24), (512, 32768),
+                                  (3, 1), (2, 64), (2, 65), (40, 5000)])
+def test_decode_splits_tiles_cap_and_shapes_only(BH, S):
+    """Whole 64-key tiles, at most 256 a split (the ring kernel lists them
+    in shared memory), every split non-empty, about 264 CTAs (two an SM
+    of an H100) unless the cap needs more, and the same answer for any D."""
+    splits, per, tile = K.decode_splits(S, BH, 128)
+    n_tiles = -(-S // tile)
+    assert tile == 64 and 1 <= per <= 256
+    assert splits * per >= n_tiles and (splits - 1) * per < n_tiles
+    assert splits * BH <= max(BH, 264 + BH) or per == 256
+    for D in (64, 80, 256):
+        assert K.decode_splits(S, BH, D) == (splits, per, tile)
+
+
+def test_decode_splits_long_cache_hits_the_cap():
+    splits, per, _ = K.decode_splits(1 << 24, 1, 128)
+    assert per == 256 and splits == (1 << 24) // 64 // 256
+
+
+def _decode_call(dtype, G, D, S=300, BH=4):
+    return (torch.zeros(BH, G, D, dtype=dtype), torch.zeros(BH, S, D, dtype=dtype),
+            torch.zeros(BH, S, D, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,G,D,expect", [
+    (torch.bfloat16, 8, 128, True), (torch.bfloat16, 1, 64, True),
+    (torch.bfloat16, 16, 256, True), (torch.bfloat16, 17, 128, False),
+    (torch.bfloat16, 32, 64, False), (torch.bfloat16, 8, 80, False),
+    (torch.float32, 8, 128, False)])
+def test_decode_dispatch_rule(dtype, G, D, expect):
+    """bf16, head dim 64/128/256 and at most 16 query heads a kv head take
+    the ring kernel; f32 and every other shape the scalar one."""
+    assert K.decode_uses_tensor_cores(*_decode_call(dtype, G, D)) is expect
+
+
+def test_decode_dispatch_rule_alignment():
+    """q, k or v 2 bytes off a 16 B boundary (a sliced view) leave the ring
+    kernel; on the CPU the plain version still gives the function."""
+    q, k, v = _decode_call(torch.bfloat16, 8, 128)
+    for i in range(3):
+        args = [q, k, v]
+        buf = torch.zeros(args[i].numel() + 1, dtype=torch.bfloat16)
+        args[i] = buf[1:].view(args[i].shape)
+        assert args[i].is_contiguous() and args[i].data_ptr() % 16 == 2
+        assert not K.decode_uses_tensor_cores(*args)
+    qq, kk, vv, valid = _inputs(18, 4, 8, 300, 128)
+    port = [torch.from_numpy(a).to(torch.bfloat16) for a in (qq, kk, vv)]
+    shifted = []
+    for t in port:
+        buf = torch.zeros(t.numel() + 1, dtype=torch.bfloat16)
+        shifted.append(buf[1:].view(t.shape).copy_(t))
+    valid = torch.from_numpy(valid)
+    assert torch.equal(K.flash_decode(*shifted, valid), K.flash_decode(*port, valid))

@@ -154,3 +154,51 @@ def test_wrapper_rejects_bad_inputs():
         K.flash_attention(q, k[:, :, :4], v)
     with pytest.raises(ValueError, match="unknown attention impl"):
         ops.attention(q, k, v, impl="pallas")
+
+
+def _call_tensors(dtype, D, B=2, Hq=4, Hkv=2, S=40):
+    """q, k, v as the model hands them over (transposed views of [B, S, H,
+    D]) and the output as the wrapper allocates it."""
+    q = torch.zeros(B, S, Hq, D, dtype=dtype).transpose(1, 2)
+    k = torch.zeros(B, S, Hkv, D, dtype=dtype).transpose(1, 2)
+    v = torch.zeros(B, S, Hkv, D, dtype=dtype).transpose(1, 2)
+    out = torch.empty(B, S, Hq, D, dtype=dtype).permute(0, 2, 1, 3)
+    return q, k, v, out
+
+
+@pytest.mark.parametrize("dtype,D,expect", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, False), (torch.bfloat16, 100, False),
+    (torch.bfloat16, 16, False), (torch.float32, 128, False),
+    (torch.float32, 64, False)])
+def test_dispatch_rule_by_dtype_and_head_dim(dtype, D, expect):
+    """bf16 at head dim 64 or 128 takes the tensor-core kernel; f32 keeps
+    full f32 products on the scalar kernel, as does every other head dim."""
+    assert K.uses_tensor_cores(*_call_tensors(dtype, D)) is expect
+    assert K.TC_HEAD_DIMS == (64, 128)
+
+
+def test_dispatch_rule_by_layout():
+    """Contiguous tensors and the model's views are on the rule; a last
+    stride other than 1, a base pointer or a row stride off 16 B is not."""
+    q, k, v, out = _call_tensors(torch.bfloat16, 128)
+    assert K.uses_tensor_cores(q.contiguous(), k.contiguous(), v.contiguous(), out)
+    wide = torch.zeros(2, 2, 40, 256, dtype=torch.bfloat16)
+    assert not K.uses_tensor_cores(q, wide[..., ::2], v, out)       # last stride 2
+    buf = torch.zeros(k.numel() + 1, dtype=torch.bfloat16)
+    off = buf[1:].view(k.shape)                                       # 2 B off
+    assert not K.uses_tensor_cores(q, k, off, out)
+    pad = torch.zeros(2, 2, 40, 132, dtype=torch.bfloat16)[..., :128]  # rows 264 B
+    assert not K.uses_tensor_cores(q, pad, v, out)
+    pad8 = torch.zeros(2, 2, 40, 136, dtype=torch.bfloat16)[..., :128]  # rows 272 B
+    assert K.uses_tensor_cores(q, pad8, v, out)
+    assert not K.uses_tensor_cores(q.float(), k, v, out)  # dtypes differ
+
+
+def test_dispatch_leaves_cpu_calls_and_counters_alone():
+    """On the CPU the plain version runs: no launch is counted."""
+    arrs = _port(_qkv(13, 1, 4, 2, 70, 70, 64), torch.bfloat16)
+    before = (K.flash_attention.launches, K.flash_attention.tc_launches)
+    got = K.flash_attention(*arrs, causal=True)
+    assert (K.flash_attention.launches, K.flash_attention.tc_launches) == before
+    assert torch.equal(got, K.flash_attention_plain(*arrs, causal=True))

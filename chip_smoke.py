@@ -12,7 +12,7 @@ line):
             shard, on a star-graph hub that needs row splitting, and on an
             empty shard.  min/max must match bitwise; sum within
             rtol=1e-4, atol=1e-5 (the reference's own kernel tolerance).
-            The lane kernels (3, 8 and 32 lanes) also match the
+            The lane kernels (3, 8, 32 and 64 lanes) also match the
             single-lane kernels on each message row bitwise, and padding
             lanes of a ragged launch are 0.
             A small engine run of the ``cuda`` backend is held against the
@@ -82,7 +82,11 @@ line):
             over 3.35 TB/s.  For the partials that is the whole mask plane,
             the 32 B sectors of idx that hold valid slots, the message
             sectors they gather, tile_window and the output (see
-            spmv_ell.cu).
+            spmv_ell.cu).  segment_combine and index_add_ take turns,
+            200 calls each: their medians and spreads.  The lane partials'
+            earlier times are recorded beside the new ones.  The window
+            staging probe times the masked and the lanes kernels with
+            every tile gathering from window 0, which stays in L2.
 9. sentinel ell_update(variant="sentinel") on the main path's first batch
             (shards 0-3) with PageRank's first messages, sum/min/max: its
             3 launches counted; partials and update bitwise the masked
@@ -131,8 +135,10 @@ SUM_RTOL, SUM_ATOL = 1e-4, 1e-5  # kernel vs plain, sum combine
 PR_RTOL, PR_ATOL = 1e-4, 1e-9  # engine cuda vs torch, PageRank values
 SERVE_QUERIES, SERVE_ITERS = 32, 20
 SLEEP_CYCLES = 100_000_000  # about 50 ms of card time ahead of timed calls
+SEGMENT_REPS = 200  # segment_combine and index_add_, in turns
 L2_FLUSH_BYTES = 256 << 20  # written before each timed call; the L2 holds 50 MB
 COMBINES = ("sum", "min", "max")
+LANE_CHECK_COUNTS = (3, 8, 32, 64)  # 64: more lanes than a warp has threads
 SPMV_CU = "src/repro_torch/csrc/spmv_ell.cu"
 FLASH_CU = "src/repro_torch/csrc/flash_attention.cu"
 DECODE_CU = "src/repro_torch/csrc/flash_decode.cu"
@@ -155,6 +161,12 @@ KERNELS = {
     "flash_decode": ("src/repro/kernels/flash_attention/kernel.py:129",
                      " S=32768", DECODE_CU),
 }
+#: the lane partials' earlier design (lanes in register chunks of 8, the
+#: row walked again for each chunk) in this script's timing phase on the
+#: same batch: NVIDIA H100 80GB HBM3 at 700 W, kept beside the new times
+EARLIER_LANE_MS = {"ell_partials_lanes L=16": 1.0867, "ell_partials_lanes L=32": 1.9869,
+                   "ell_partials_ragged L=16": 1.1250,
+                   "ell_partials_ragged L=32": 2.0670}
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 #: H100 SXM float32 outside the tensor cores; the bound of 32-bit integer
 #: work too (its published rate is no higher), so the bound stays a least time
@@ -266,6 +278,29 @@ class Smoke:
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
+    def timed_each(self, fns, reps):
+        """Device ms of every call, the functions (name -> fn) taking turns
+        call by call, each call after the L2 flush and behind the sleep
+        kernel as in :meth:`timed`: name -> ``reps`` times."""
+        torch = self.torch
+        if self.l2_flush is None:
+            self.l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+        for fn in fns.values():
+            fn()  # warm-up
+        torch.cuda.synchronize()
+        events = {n: [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+                  for n in fns}
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for i in range(reps):
+            for n, fn in fns.items():
+                self.l2_flush.zero_()
+                events[n][i][0].record()
+                fn()
+                events[n][i][1].record()
+        torch.cuda.synchronize()
+        return {n: [a.elapsed_time(b) for a, b in ev] for n, ev in events.items()}
+
     # ------------------------------------------------------------- phases
     def build(self):
         from repro_torch.kernels import build
@@ -355,7 +390,7 @@ class Smoke:
         planes = ([dell.idx], [dell.mask], [dell.tile_window])
         seg = ([dell.perm], [dell.row_ptr])
         kw = dict(window=dell.window, tr=dell.tr)
-        for n_lanes in (3, 8, 32):
+        for n_lanes in LANE_CHECK_COUNTS:
             x = rng.random((n_lanes, n_pad)).astype(np.float32)
             x[rng.random(x.shape) < 0.1] = np.inf
             msgs = torch.from_numpy(x).to("cuda")
@@ -388,7 +423,8 @@ class Smoke:
                         *planes, msgs[l], combine=c, **kw)):
                     raise AssertionError(f"ragged {where}: lane {l} is not "
                                          f"bitwise its single-lane launch")
-        print(f"  {where:26s} lanes 3/8/32: == single-lane launches bitwise")
+        print(f"  {where:26s} lanes {'/'.join(map(str, LANE_CHECK_COUNTS))}: "
+              f"== single-lane launches bitwise")
 
     def small_engine(self):
         """cuda backend vs the numpy oracle on a small graph."""
@@ -764,12 +800,17 @@ class Smoke:
             bytes=self.partials_bytes(torch, idxs, masks, tws, first.window,
                                       first.tr))
         lib_out = torch.zeros(rows, device=dev)
+        each = self.timed_each({
+            "kernel": lambda: K.segment_combine(part, perms, ptrs, "sum"),
+            "index_add_": lambda: lib_out.zero_().index_add_(0, seg, part)},
+            SEGMENT_REPS)
+        spread = {n: spread_of(ms) for n, ms in each.items()}
+        self.report["segment_combine_vs_index_add"] = spread
         t["segment_combine"] = dict(
-            ms=self.timed(lambda: K.segment_combine(part, perms, ptrs, "sum"), 50),
+            ms=spread["kernel"]["median"],
             plain_ms=self.timed(lambda: K.segment_combine_plain(
                 part, perms, ptrs, "sum"), 10),
-            library_ms=self.timed(
-                lambda: lib_out.zero_().index_add_(0, seg, part), 50),
+            library_ms=spread["index_add_"]["median"],
             bytes=4 * (2 * n_valid + 2 * rows + 1))
         for kname, d in t.items():
             d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -787,9 +828,9 @@ class Smoke:
         for kname, d in t.items():
             print(f"  {kname}: {json.dumps(d)}")
         # Window-staging probe: the same rows with every tile pointed at
-        # window 0, so all gathers hit one 64 KB table that stays on chip.
-        # The gap to the real run bounds what staging each window in
-        # shared memory could save.
+        # window 0, so all gathers hit one table that stays on chip (64 KB;
+        # 1-2 MB for the lanes kernel at 16-32 lanes, in lane_timing).  The
+        # gap to the real run bounds what staging each window could save.
         tw0 = [torch.zeros_like(tw) for tw in tws]
         self.report["window_staging_probe"] = {
             "ms_real_windows": t["ell_partials_masked"]["ms"],
@@ -797,8 +838,8 @@ class Smoke:
                 idxs, masks, tw0, msgs, **kw), 20)}
         print(f"  window staging probe: "
               f"{json.dumps(self.report['window_staging_probe'])}")
-        self.lane_timing(K, first, idxs, masks, tws, perms, ptrs, seg, n_valid,
-                         rows, rng)
+        self.lane_timing(K, first, idxs, masks, tws, tw0, perms, ptrs, seg,
+                         n_valid, rows, rng)
         # the min combine (SSSP/WCC) at the same shape, for the record
         kmin = dict(kw, combine="min")
         self.report["timing_min"] = {
@@ -808,8 +849,8 @@ class Smoke:
                 part, perms, ptrs, "min"), 50)}
         print(f"  min combine: {json.dumps(self.report['timing_min'])}")
 
-    def lane_timing(self, K, first, idxs, masks, tws, perms, ptrs, seg, n_valid,
-                    rows, rng):
+    def lane_timing(self, K, first, idxs, masks, tws, tw0, perms, ptrs, seg,
+                    n_valid, rows, rng):
         """The lane kernels on the same batch at 16 and 32 lanes: the lanes
         kernel with the sum combine; the ragged kernel and the lane combine
         with half the lanes on a min arm and half on a sum arm, as a fusion
@@ -845,13 +886,16 @@ class Smoke:
             lib = torch.zeros((L, rows), device=dev)
             t[f"ell_partials_lanes L={L}"] = dict(
                 ms=self.timed(lambda: K.ell_partials_lanes(
-                    *args, lanes, combine="sum", **kw), 10),
+                    *args, lanes, combine="sum", **kw), 20),
                 plain_ms=self.timed(lambda: K.ell_partials_lanes_plain(
                     *args, lanes, combine="sum", **kw), 1),
                 library_ms=None, bytes=pbytes)
+            self.report["window_staging_probe"][f"lanes_L={L}_ms_one_window"] = \
+                self.timed(lambda: K.ell_partials_lanes(
+                    idxs, masks, tw0, lanes, combine="sum", **kw), 20)
             t[f"ell_partials_ragged L={L}"] = dict(
                 ms=self.timed(lambda: K.ell_partials_ragged(
-                    *args, cids, lanes, combines=arms, **kw), 10),
+                    *args, cids, lanes, combines=arms, **kw), 20),
                 plain_ms=self.timed(lambda: K.ell_partials_ragged_plain(
                     *args, cids, lanes, combines=arms, **kw), 1),
                 library_ms=None, bytes=pbytes)
@@ -866,8 +910,11 @@ class Smoke:
             del x, lanes, part, rpart, acc, lib
         for kname, d in t.items():
             d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
+            if kname in EARLIER_LANE_MS:
+                d["earlier_ms"] = EARLIER_LANE_MS[kname]
             if " L=" in kname:
                 print(f"  {kname}: {json.dumps(d)}")
+        self.report["lane_timing"] = {k: d for k, d in t.items() if " L=" in k}
 
     # ------------------------------------------------------------ LM path
     def lm_kernels(self):
@@ -1460,6 +1507,15 @@ class Smoke:
             srcs.append(tw.long()[r // tr] * window + col)
         run = -(-4 * n_lanes // 32) * 32
         return total + run * torch.unique(torch.cat(srcs)).numel()
+
+
+def spread_of(ms):
+    """Median, quartiles and extremes of a list of times."""
+    import numpy as np
+
+    q = np.percentile(ms, [0, 25, 50, 75, 100])
+    return {"reps": len(ms), "median": float(q[2]), "p25": float(q[1]),
+            "p75": float(q[3]), "min": float(q[0]), "max": float(q[4])}
 
 
 def settle(svc, sweeps0, timeout=120.0):

@@ -1,6 +1,7 @@
 // Fragment helpers for the bf16 tensor-core kernels (sm_90a): asynchronous
-// 16 B copies into shared memory, an XOR-swizzled [rows][D] bf16 tile
-// layout, ldmatrix and mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+// 16 B and 4 B copies into shared memory (the ELL lane kernel's too), an
+// XOR-swizzled [rows][D] bf16 tile layout, ldmatrix and mma.sync.m16n8k16
+// (bf16 in, f32 accumulate).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for
 // lane = 4 g + t:
@@ -37,6 +38,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+// 4 B global -> shared, likewise
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -4,11 +4,13 @@
 // stream, allocates nothing and returns cudaGetLastError().  All take a
 // batch of up to kMaxBatch shards as tables of per-shard pointers, passed
 // by value as a __grid_constant__ parameter, so a batch is one launch and
-// no shard's arrays are ever copied into a concatenation.  The single-lane
-// and the lane entry points share one templated device body each (a lane
-// count of 1 and one compile-time combine for the former), so lane l of a
-// lane launch folds exactly the values, in exactly the order, that a
-// single-lane launch on message row l folds: the two agree bitwise.
+// no shard's arrays are ever copied into a concatenation.  Lane l of a lane
+// launch folds exactly the values, in exactly the order, that a
+// single-lane launch on message row l folds, so the two agree bitwise: on
+// the warp-per-row path they share one templated body (a lane count of 1
+// and a compile-time combine for the single-lane one), on the vector path
+// the lane kernel keeps the single-lane kernel's accumulators and tree
+// (see ell_partials_lanes).
 //
 // ell_partials_masked  replaces the TPU kernel
 //     src/repro/kernels/spmv_ell/kernel.py::ell_partials_masked
@@ -64,17 +66,63 @@
 //   and the partials are lane-minor: messages [n_pad, S] and partials
 //   [n_ell, S], with the lane stride S >= L a multiple of the chunk NL.  A
 //   valid slot gathers its source's lanes from one contiguous run (one
-//   32 B sector for 8 lanes) instead of L separate sectors, and a row's
-//   partials leave in 16 B stores.
+//   128 B line for 32 lanes) instead of L separate sectors.
 //   Bound: memory.  The mask plane and the idx sectors of set slots once
 //   (not once per lane), the L * 4 B of messages each distinct gathered
 //   source holds (whole sectors), tile_window and cid, and L floats out per
-//   ELL row.
-//   Design: the single-lane body, with the lanes processed in chunks of
-//   NL (8, or 4/1 for few lanes) kept in registers; each chunk reloads the
-//   row's mask and indices, which hit L1 after the first chunk.  The fold
-//   order per lane is the single-lane kernel's.  Lanes are independent
-//   float reductions, not a matrix product: no tensor cores.
+//   ELL row.  The gathers themselves move one run per valid slot (8.4 M
+//   slots x 128 B = 1.07 GB at L=32 on the smoke's batch) through L2,
+//   which the bound does not count: the window a tile gathers from
+//   (W x S x 4 B = 2 MB at W=16384, L=32) is larger than a block's 227 KB
+//   of shared memory, so it is left to L2, not staged.
+//   Design (the vector path: K % 16 == 0, 16 B aligned planes): the lane
+//   axis is on threads, and each row is read once for all its lanes.  T
+//   threads own a row, V lanes each (V = 1, 2 or 4, as the lane stride and
+//   the registers allow; T at least P = lanes_per_row(k, 1)), so a warp
+//   works on a set of 32 / T rows at once.  A warp walks a run of 16 sets;
+//   two set records in shared memory, filled by cp.async, keep the next
+//   set's mask bytes (units 0..P-1 of a row, one 16 B load a unit), unit-0
+//   indices and tile_window entries on their way while it works.
+//   Per set, one thread a (row, unit) turns the unit's 16 mask bytes into
+//   16 bits, and a ballot lists the set's items: (row, accumulator p) with
+//   a set slot.  The set's 32 / T thread groups take the items in turn (a
+//   full row is 8 items at K=128, not one thread walking 128 slots): a
+//   group reads the unit's 16 indices once, gathers each set slot's V lanes
+//   a thread (one source's lanes are one contiguous run of the group),
+//   16 / V gathers in flight before it folds them in slot order, and leaves
+//   the accumulator in shared memory.  Then each row's group folds the
+//   row's accumulators in the tree below and writes the row's S lanes in
+//   one coalesced store; padding lanes and the columns from L to S are
+//   written as 0.  A lane's combine arm is read once.  A launch with one
+//   arm folds with a compile-time combine; in a ragged launch a thread
+//   whose lanes share an arm folds with that arm's (one branch an arm
+//   present in the warp), else with the run-time select of each lane's.
+//   Each shard is cut into runs of
+//   equal share, and warp g takes run g / n of shard g % n, so the warps in
+//   flight hold the same stretch of every shard of the batch, whose rows
+//   gather from the same few windows (one shard's run after another would
+//   fetch each window from memory once a shard).  A warp's accumulators
+//   (P x S floats a row of its set) must fit a block's shared memory: a
+//   lane stride past that (about 1,800 lanes at K >= 512) is refused
+//   before any launch, as no other kernel keeps the fold order.
+//   Why lane l is bitwise the single-lane kernel on row l: that kernel
+//   spreads a row over P threads, thread p folding the slots of units p,
+//   p + P, ... in ascending order from the identity, then folds the P
+//   results in an xor-shuffle tree (offsets P/2 ... 1).  Here accumulator
+//   p of a lane folds exactly those slots in that order (one item), and
+//   the accumulators are folded in that tree as seen from its thread 0:
+//   acc[q] = fold(acc[q], acc[q + off]) for q < off.  Only the folds whose
+//   second operand is an accumulator with no item are left out, and they
+//   change no bit: that operand is the identity, and an accumulator is
+//   never -0.0 (it starts at +0.0, and x + y is -0.0 only if both are;
+//   nothing is flushed to zero: no fast-math flags) nor, for min/max, NaN
+//   (fminf/fmaxf return the non-NaN operand, and it starts at +-inf), so
+//   x + 0 == x, fminf(x, +inf) == x and fmaxf(x, -inf) == x, NaN sums
+//   being the card's one canonical NaN either way.  No fold is reordered.
+//   tests/test_torch_lanes.py models both orders in numpy, bitwise.  No
+//   tensor cores: the lanes are independent float reductions.
+//   Otherwise (any K) the warp-per-row body of the single-lane kernel, NL
+//   lanes a chunk (8, or 4/1 for few lanes) kept in registers.
 //
 // segment_combine  replaces the XLA segment_sum/min/max that follows the
 //     TPU kernel (src/repro/kernels/spmv_ell/ops.py::_segment_combine)
@@ -103,6 +151,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "mma_bf16.cuh"  // cp.async helpers
+
 namespace {
 
 enum Combine : int { kSum = 0, kMin = 1, kMax = 2 };
@@ -114,6 +164,11 @@ constexpr int kMaxArms = 8;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kCombineThreads = 256;
 constexpr int kSlotsPerLane = 16;  // one 16 B load of mask bytes
+constexpr int kLaneRowSets = 16;   // row sets a warp of the lane kernel walks
+constexpr int kLaneStages = 2;     // sets staged at once, in shared memory
+constexpr int kLaneBlocksPerSM = 3;  // 85 registers a thread at most
+constexpr int kGatherFloats = 16;    // floats a lane thread gathers at once
+constexpr int kBlockSmem = 227 * 1024;  // an H100 block's shared memory, opted in
 
 // The identity and the fold of a combine: OP when it is known at compile
 // time, else the run-time op of the lane (any op < 0 marks a padding lane,
@@ -175,11 +230,16 @@ __device__ __forceinline__ int lane_op(const LaneArgs& la, int l) {
   }
 }
 
-// NL consecutive lanes of one source from the vertex-major table.
+// NL consecutive lanes of one source from the vertex-major table (NL = 1,
+// 2 or a multiple of 4, 4 B aligned times NL up to 16 B).
 template <int NL>
 __device__ __forceinline__ void gather(const float* p, float (&v)[NL]) {
   if constexpr (NL == 1) {
     v[0] = __ldg(p);
+  } else if constexpr (NL == 2) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
   } else {
 #pragma unroll
     for (int q = 0; q < NL / 4; ++q) {
@@ -192,11 +252,13 @@ __device__ __forceinline__ void gather(const float* p, float (&v)[NL]) {
   }
 }
 
-// NL consecutive lanes of one row of a lane-minor output.
+// NL consecutive lanes of one row of a lane-minor output (NL as gather's).
 template <int NL>
 __device__ __forceinline__ void store(float* p, const float (&v)[NL]) {
   if constexpr (NL == 1) {
     *p = v[0];
+  } else if constexpr (NL == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
 #pragma unroll
     for (int q = 0; q < NL / 4; ++q) {
@@ -214,9 +276,13 @@ __device__ __forceinline__ int shard_of(const T* first, int n, long long r) {
   return s;
 }
 
-template <typename IdxT, int OP, int NL, bool MASKED>
+// The single-lane partials on the vector path: a row over lanes_per_row
+// threads, thread sub folding its 16-slot units sub, sub + lanes_per_row,
+// ... in ascending slot order, then an xor-shuffle tree over the row's
+// threads.  The lane kernel reproduces this order (see the source note).
+template <typename IdxT, int OP, bool MASKED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
+ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a,
                         const float* __restrict__ msgs,
                         float* __restrict__ out, int k, int tr, int window,
                         int lanes_per_row) {
@@ -227,66 +293,333 @@ ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
           (32 / lanes_per_row) +
       lane / lanes_per_row;
   const bool live = row < a.row0[a.n];  // dead threads still join the shuffles
-  const float* table = msgs;
-  const IdxT* ri = nullptr;
-  const uint8_t* rm = nullptr;
+  float acc = identity_of<OP>(OP);
   if (live) {
     const int s = shard_of(a.row0, a.n, row);
     const long long r = row - a.row0[s];
-    table = msgs + static_cast<long long>(__ldg(a.tile_window[s] + r / tr)) *
-                       window * la.stride;
-    ri = static_cast<const IdxT*>(a.idx[s]) + r * k;
-    if constexpr (MASKED) rm = a.mask[s] + r * k;
-  }
-  const int n_lanes = OP == kPerLane ? la.n_lanes : 1;
-  for (int l0 = 0; l0 < n_lanes; l0 += NL) {
-    int op[NL];
-    float acc[NL];
+    const float* table =
+        msgs + static_cast<long long>(__ldg(a.tile_window[s] + r / tr)) * window;
+    const IdxT* ri = static_cast<const IdxT*>(a.idx[s]) + r * k;
+    const uint8_t* rm = MASKED ? a.mask[s] + r * k : nullptr;
+    for (int c = sub * kSlotsPerLane; c < k; c += lanes_per_row * kSlotsPerLane) {
+      uint32_t mw[4] = {~0u, ~0u, ~0u, ~0u};  // no mask: every slot folds
+      if constexpr (MASKED) {
+        const uint4 m = __ldg(reinterpret_cast<const uint4*>(rm + c));
+        if ((m.x | m.y | m.z | m.w) == 0u) continue;
+        mw[0] = m.x;
+        mw[1] = m.y;
+        mw[2] = m.z;
+        mw[3] = m.w;
+      }
+      constexpr int kVecs = kSlotsPerLane * sizeof(IdxT) / sizeof(int4);
+      int4 q[kVecs];
 #pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      op[i] = lane_op<OP>(la, l0 + i);
-      acc[i] = identity_of<OP>(op[i]);
-    }
-    if (live) {
-      for (int c = sub * kSlotsPerLane; c < k; c += lanes_per_row * kSlotsPerLane) {
-        uint32_t mw[4] = {~0u, ~0u, ~0u, ~0u};  // no mask: every slot folds
-        if constexpr (MASKED) {
-          const uint4 m = __ldg(reinterpret_cast<const uint4*>(rm + c));
-          if ((m.x | m.y | m.z | m.w) == 0u) continue;
-          mw[0] = m.x;
-          mw[1] = m.y;
-          mw[2] = m.z;
-          mw[3] = m.w;
+      for (int v = 0; v < kVecs; ++v) q[v] = __ldg(reinterpret_cast<const int4*>(ri + c) + v);
+      IdxT j[kSlotsPerLane];
+      memcpy(j, q, sizeof(q));
+#pragma unroll
+      for (int t = 0; t < kSlotsPerLane; ++t) {
+        if ((mw[t / 4] >> (8 * (t % 4))) & 0xffu) {
+          const int col = min(max(static_cast<int>(j[t]), 0), window - 1);
+          acc = fold<OP>(OP, acc, __ldg(table + col));
         }
-        constexpr int kVecs = kSlotsPerLane * sizeof(IdxT) / sizeof(int4);
-        int4 q[kVecs];
+      }
+    }
+  }
+  for (int off = lanes_per_row / 2; off > 0; off >>= 1) {
+    acc = fold<OP>(OP, acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  }
+  if (live && sub == 0) out[row] = acc;
+}
+
+// Bit t set where byte t of the 16 mask bytes is non-zero.
+__device__ __forceinline__ uint32_t slot_bits(uint4 m) {
+  const uint32_t x[4] = {m.x, m.y, m.z, m.w};
+  uint32_t bits = 0;
 #pragma unroll
-        for (int v = 0; v < kVecs; ++v) q[v] = __ldg(reinterpret_cast<const int4*>(ri + c) + v);
-        IdxT j[kSlotsPerLane];
-        memcpy(j, q, sizeof(q));
+  for (int q = 0; q < 4; ++q) {
+    // one bit a byte at bits 0, 8, 16, 24; the product gathers them,
+    // byte 0 lowest, into its top byte
+    const uint32_t b = __vcmpne4(x[q], 0u) & 0x01010101u;
+    bits |= ((b * 0x01020408u) >> 24) << (4 * q);
+  }
+  return bits;
+}
+
+// A warp's shared memory in a lane launch, for `sets` rows at once: a ring
+// of kLaneStages records of a set (the mask bytes of units 0..P-1 of each
+// row, zeros past K; the 16 indices of unit 0 of each row; each row's
+// tile_window entry), the set's slot bits (16 a unit), and its
+// accumulators: P of each of the row's S lanes.
+template <typename IdxT, int P>
+struct LaneSmem {
+  static constexpr int kVecs = kSlotsPerLane * sizeof(IdxT) / sizeof(int4);
+  int idx_at, tw_at, set_bytes, bits_at, acc_at, bytes;
+  __device__ __host__ LaneSmem(int sets, int lane_stride)
+      : idx_at(16 * P * sets),
+        tw_at(16 * (P + kVecs) * sets),
+        set_bytes(16 * (P + kVecs) * sets + (4 * sets + 15) / 16 * 16),
+        bits_at(kLaneStages * set_bytes),
+        acc_at(bits_at + (2 * P * sets + 15) / 16 * 16),
+        bytes(acc_at + 4 * P * sets * lane_stride) {}
+};
+
+// A warp's run of rows of one shard, and what each of its threads copies
+// of every set of it into shared memory: thread `lane` < sets * P the mask
+// bytes of unit lane % P of row lane / P, threads c < sets * kVecs 16 B of
+// the unit-0 indices, thread `lane` < sets the tile_window entry of row
+// `lane` (tracked from set to set without a division).
+template <typename IdxT, int P>
+struct LaneRun {
+  static constexpr int kVecs = LaneSmem<IdxT, P>::kVecs;
+  const uint8_t* mask;  // the run's first row
+  const IdxT* idx;
+  const int32_t* tw;
+  int rows, k, units, sets;
+  int tile, rem, tr;  // this thread's next tile_window row: tile, row % tr
+
+  __device__ void stage(uint8_t* rec, const LaneSmem<IdxT, P>& sm, int set, int lane,
+                        const void* none) {
+    const int r0 = set * sets;
+    if (lane < sets * P) {  // sets * P <= 32: one mask unit a thread
+      const int r = r0 + lane / P;
+      const int u = lane % P;
+      const bool ok = r < rows && u < units;
+      mma::cp_async_16(rec + 16 * lane, ok ? mask + r * k + 16 * u : none, ok);
+    }
+    for (int c = lane; c < sets * kVecs; c += 32) {
+      const int r = r0 + c / kVecs;
+      const bool ok = r < rows;
+      mma::cp_async_16(rec + sm.idx_at + 16 * c,
+                   ok ? reinterpret_cast<const int4*>(idx + r * k) + c % kVecs : none, ok);
+    }
+    if (lane < sets) {
+      const bool ok = r0 + lane < rows;
+      mma::cp_async_4(rec + sm.tw_at + 4 * lane, ok ? tw + tile : none, ok);
+      for (rem += sets; rem >= tr; rem -= tr) ++tile;
+    }
+  }
+};
+
+// Folds gathered slots t (bit t of w) into a thread's V lanes, in order.
+template <int V, int OP, int N>
+__device__ __forceinline__ void fold_batch(float (&acc)[V], const int (&op)[V], uint32_t w,
+                                           const float (&x)[N][V]) {
 #pragma unroll
-        for (int t = 0; t < kSlotsPerLane; ++t) {
-          if ((mw[t / 4] >> (8 * (t % 4))) & 0xffu) {
-            const int col = min(max(static_cast<int>(j[t]), 0), window - 1);
-            float v[NL];
-            gather<NL>(table + static_cast<long long>(col) * la.stride + l0, v);
+  for (int t = 0; t < N; ++t) {
+    if ((w >> t) & 1u) {
 #pragma unroll
-            for (int i = 0; i < NL; ++i) acc[i] = fold<OP>(op[i], acc[i], v[i]);
+      for (int v = 0; v < V; ++v) acc[v] = fold<OP>(op[v], acc[v], x[t][v]);
+    }
+  }
+}
+
+// Folds the set slots of one 16-slot unit (bits w, its 16 indices at ix)
+// into a thread's V lanes of one accumulator, in slot order: 16 / V slots
+// at a time, their gathers all issued before the first fold.
+// `lanes` is the thread's first lane of the row's window; a source's lanes
+// start col * stride after it.
+template <typename IdxT, int V, int OP>
+__device__ __forceinline__ void fold_unit(float (&acc)[V], const int (&op)[V], int arm,
+                                          uint32_t w, const IdxT* ix, const float* lanes,
+                                          int stride, int window) {
+  constexpr int kVecs = kSlotsPerLane * sizeof(IdxT) / sizeof(int4);
+  int4 q[kVecs];
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) q[v] = reinterpret_cast<const int4*>(ix)[v];
+  IdxT j[kSlotsPerLane];
+  memcpy(j, q, sizeof(q));
+  constexpr int kBatch = kGatherFloats / V;
+#pragma unroll
+  for (int h = 0; h < kSlotsPerLane; h += kBatch) {
+    if (((w >> h) & ((1u << kBatch) - 1u)) == 0u) continue;
+    float x[kBatch][V];
+#pragma unroll
+    for (int t = 0; t < kBatch; ++t) {
+      if ((w >> (h + t)) & 1u) {
+        const int col = min(max(static_cast<int>(j[h + t]), 0), window - 1);
+        gather<V>(lanes + static_cast<unsigned>(col * stride), x[t]);
+      }
+    }
+    if constexpr (OP != kPerLane) {
+      fold_batch<V, OP>(acc, op, w >> h, x);
+    } else if (arm == kSum) {  // all the thread's lanes on one arm: its
+      fold_batch<V, kSum>(acc, op, w >> h, x);  // compile-time fold, a
+    } else if (arm == kMin) {                   // branch for each arm
+      fold_batch<V, kMin>(acc, op, w >> h, x);  // present in the warp
+    } else if (arm == kMax) {
+      fold_batch<V, kMax>(acc, op, w >> h, x);
+    } else {
+      fold_batch<V, kPerLane>(acc, op, w >> h, x);
+    }
+  }
+}
+
+// The lane partials on the vector path (see the source note).  A warp
+// walks its run of rows in sets of 32 / T rows.  Each set's work is a list
+// of items, one for each (row, accumulator p) that has a set slot: the
+// slots of units p, p + P, ... of that row, in order.  The 32 / T groups of
+// T threads take the items in turn, a thread V lanes of the row (lanes
+// V sub .. V sub + V - 1, then V (sub + T) ...), and leave each
+// accumulator in shared memory; a row's thread group then folds its
+// accumulators in the single-lane kernel's xor tree, as seen from that
+// kernel's thread 0, and stores the row.  OP is the combine of every lane
+// where the launch has one arm, else kPerLane.  Each shard is cut into
+// `chunks` runs of whole sets; warp g takes run g / n of shard g % n, so
+// the warps in flight hold the same stretch of every shard, whose rows
+// gather from the same few windows.  The ring of kLaneStages set records,
+// filled by cp.async, keeps the next sets' masks, unit-0 indices and
+// tile_window entries on their way while the warp gathers.
+template <typename IdxT, int P, int V, int OP>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kLaneBlocksPerSM)
+ell_partials_lanes_kernel(const __grid_constant__ PartialsArgs a,
+                          const __grid_constant__ LaneArgs la,
+                          const float* __restrict__ msgs,
+                          float* __restrict__ out, int k, int tr, int window,
+                          int row_threads, int chunks) {
+  extern __shared__ __align__(16) uint8_t lane_smem[];
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (row_threads - 1);
+  const int g = lane / row_threads;   // the thread's group, and its row of a set
+  const int sets = 32 / row_threads;  // rows a warp works on at once
+  const int stride = la.stride;
+  const LaneSmem<IdxT, P> sm(sets, stride);
+  const int warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int s = warp % a.n;
+  const int n_rows = static_cast<int>(a.row0[s + 1] - a.row0[s]);
+  const int run = ((n_rows + chunks - 1) / chunks + sets - 1) / sets * sets;
+  const int begin = min(warp / a.n * run, n_rows);
+  const int end = min(begin + run, n_rows);
+  const int n_sets = (end - begin + sets - 1) / sets;
+  LaneRun<IdxT, P> rr;
+  rr.mask = a.mask[s] + static_cast<long long>(begin) * k;
+  rr.idx = static_cast<const IdxT*>(a.idx[s]) + static_cast<long long>(begin) * k;
+  rr.tw = a.tile_window[s];
+  rr.rows = end - begin;
+  rr.k = k;
+  rr.units = k / kSlotsPerLane;
+  rr.sets = sets;
+  rr.tr = tr;
+  rr.tile = (begin + lane) / tr;
+  rr.rem = (begin + lane) % tr;
+  const void* none = a.mask[0];  // an aligned address that is not read
+  uint8_t* base = lane_smem + (threadIdx.x >> 5) * sm.bytes;
+  uint16_t* bits = reinterpret_cast<uint16_t*>(base + sm.bits_at);
+  float* accs = reinterpret_cast<float*>(base + sm.acc_at);
+  const int rounds = (rr.units + P - 1) / P;
+  const int blocks = (stride + row_threads * V - 1) / (row_threads * V);
+  const uint32_t row_units = P == 32 ? ~0u : (1u << P) - 1u;
+  float* out_rows = out + (a.row0[s] + begin) * la.out_stride;
+  int op0[V];  // the arms of a thread's lanes of block 0, read once
+#pragma unroll
+  for (int v = 0; v < V; ++v) op0[v] = lane_op<kPerLane>(la, sub * V + v);
+
+  for (int i = 0; i < kLaneStages - 1; ++i) {
+    if (i < n_sets) rr.stage(base + i * sm.set_bytes, sm, i, lane, none);
+    mma::cp_async_commit();
+  }
+  for (int i = 0; i < n_sets; ++i) {
+    const int ahead = i + kLaneStages - 1;
+    if (ahead < n_sets) {
+      rr.stage(base + (ahead % kLaneStages) * sm.set_bytes, sm, ahead, lane, none);
+    }
+    mma::cp_async_commit();  // empty groups keep the count
+    mma::cp_async_wait<kLaneStages - 1>();
+    __syncwarp();
+    const uint8_t* rec = base + (i % kLaneStages) * sm.set_bytes;
+    const int r0 = i * sets;  // the set's first row, from the run's first
+    // Thread c < sets * P turns unit c % P of row c / P into slot bits.
+    uint32_t mine = 0u;
+    if (lane < sets * P) {
+      mine = slot_bits(reinterpret_cast<const uint4*>(rec)[lane]);
+      bits[lane] = static_cast<uint16_t>(mine);
+    }
+    // The items: bit c for (row c / P, accumulator c % P).  Past round 0
+    // every accumulator of a live row is one (its units are read then).
+    const uint32_t items = __ballot_sync(
+        0xffffffffu, lane < sets * P &&
+                         (rounds == 1 ? mine != 0u : r0 + lane / P < rr.rows));
+    __syncwarp();
+    for (int wave = 0; wave < __popc(items); wave += sets) {
+      const int it = wave + g;
+      if (it >= __popc(items)) break;  // no warp-wide step below
+      const int c = __fns(items, 0, it + 1);
+      const int gi = c / P;  // the item's row of the set, and accumulator
+      const int p = c % P;
+      const int r = r0 + gi;
+      const float* table =
+          msgs + static_cast<long long>(reinterpret_cast<const int32_t*>(rec + sm.tw_at)[gi]) *
+                     window * stride;
+      for (int b = 0; b < blocks; ++b) {
+        const int l0 = (b * row_threads + sub) * V;
+        if (l0 >= stride) break;
+        int op[V];
+        float acc[V];
+        int arm = 0;  // the combine of all the thread's lanes, else kPerLane
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          op[v] = b == 0 ? op0[v] : lane_op<kPerLane>(la, l0 + v);
+          acc[v] = identity_of<OP>(op[v]);
+          arm = v == 0 ? op[0] : (op[v] == arm ? arm : kPerLane);
+        }
+        for (int rd = 0; rd < rounds; ++rd) {
+          const int u = rd * P + p;
+          if (u >= rr.units) break;
+          const uint32_t w_u =
+              rd == 0 ? bits[c]
+                      : slot_bits(__ldg(reinterpret_cast<const uint4*>(rr.mask + r * k) + u));
+          const IdxT* ix = u == 0 ? reinterpret_cast<const IdxT*>(rec + sm.idx_at) +
+                                        gi * kSlotsPerLane  // staged
+                                  : rr.idx + r * k + u * kSlotsPerLane;
+          fold_unit<IdxT, V, OP>(acc, op, arm, w_u, ix, table + l0, stride, window);
+        }
+        store<V>(accs + (c * stride + l0), acc);
+      }
+    }
+    __syncwarp();
+    // Each row's tree, less its folds with an accumulator that holds no
+    // item of the row: those hold the identity, and fold(x, identity) is x
+    // bitwise for every x an accumulator can hold (see the source note).
+    const int r = r0 + g;
+    if (r < rr.rows) {
+      for (int b = 0; b < blocks; ++b) {
+        const int l0 = (b * row_threads + sub) * V;
+        if (l0 >= stride) break;
+        int op[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) op[v] = b == 0 ? op0[v] : lane_op<kPerLane>(la, l0 + v);
+        const uint32_t held = (items >> (g * P)) & row_units;
+        const float* row_accs = accs + (g * P * stride + l0);
+        float res[V];
+        if (held == 1u) {  // accumulator 0 alone: no fold of the tree is left
+#pragma unroll
+          for (int v = 0; v < V; ++v) res[v] = row_accs[v];
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {  // a lane at a time: P values live
+            float acc[P];
+            uint32_t left = held;
+#pragma unroll
+            for (int q = 0; q < P; ++q) {
+              acc[q] = (held >> q) & 1u ? row_accs[q * stride + v] : identity_of<OP>(op[v]);
+            }
+#pragma unroll
+            for (int off = P / 2; off > 0; off >>= 1) {
+#pragma unroll
+              for (int q = 0; q < off; ++q) {
+                if ((left >> (q + off)) & 1u) acc[q] = fold<OP>(op[v], acc[q], acc[q + off]);
+              }
+              left |= left >> off;
+            }
+            res[v] = acc[0];
           }
         }
+#pragma unroll
+        for (int v = 0; v < V; ++v) res[v] = op[v] < 0 ? 0.0f : res[v];
+        store<V>(out_rows + static_cast<long long>(r) * la.out_stride + l0, res);
       }
     }
-    for (int off = lanes_per_row / 2; off > 0; off >>= 1) {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) {
-        acc[i] = fold<OP>(op[i], acc[i], __shfl_xor_sync(0xffffffffu, acc[i], off));
-      }
-    }
-    if (live && sub == 0) {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) acc[i] = op[i] < 0 ? 0.0f : acc[i];
-      store<NL>(out + row * la.out_stride + l0, acc);
-    }
+    __syncwarp();  // every thread is done with this set before it is refilled
   }
 }
 
@@ -385,20 +718,24 @@ segment_combine_kernel(const __grid_constant__ CombineArgs a, LaneArgs la,
 }
 
 template <typename IdxT, int OP, int NL, bool MASKED>
+void launch_scalar(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                   float* o, int k, int tr, int window, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((a.row0[a.n] + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  ell_partials_scalar_kernel<IdxT, OP, NL, MASKED><<<grid, dim3(kWarpsPerBlock * 32), 0, stream>>>(
+      a, la, x, o, k, tr, window);
+}
+
+template <typename IdxT, int OP, bool MASKED>
 void launch_partials(const PartialsArgs& a, const LaneArgs& la, const float* x,
                      float* o, int k, int tr, int window, int lanes_per_row,
                      cudaStream_t stream) {
-  const long long rows = a.row0[a.n];
-  const dim3 block(kWarpsPerBlock * 32);
   if (lanes_per_row > 0) {
     const long long per_block = static_cast<long long>(kWarpsPerBlock) * (32 / lanes_per_row);
-    const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
-    ell_partials_vec_kernel<IdxT, OP, NL, MASKED><<<grid, block, 0, stream>>>(
-        a, la, x, o, k, tr, window, lanes_per_row);
+    const dim3 grid(static_cast<unsigned>((a.row0[a.n] + per_block - 1) / per_block));
+    ell_partials_vec_kernel<IdxT, OP, MASKED><<<grid, dim3(kWarpsPerBlock * 32), 0, stream>>>(
+        a, x, o, k, tr, window, lanes_per_row);
   } else {
-    const dim3 grid(static_cast<unsigned>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-    ell_partials_scalar_kernel<IdxT, OP, NL, MASKED><<<grid, block, 0, stream>>>(
-        a, la, x, o, k, tr, window);
+    launch_scalar<IdxT, OP, 1, MASKED>(a, la, x, o, k, tr, window, stream);
   }
 }
 
@@ -408,32 +745,131 @@ void launch_single(const PartialsArgs& a, const LaneArgs& la, const float* x,
                    int combine, cudaStream_t stream) {
   switch (combine) {
     case kSum:
-      launch_partials<IdxT, kSum, 1, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kSum, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
     case kMin:
-      launch_partials<IdxT, kMin, 1, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kMin, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
     default:
-      launch_partials<IdxT, kMax, 1, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_partials<IdxT, kMax, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
       break;
   }
 }
 
+// Lanes a thread of a lane launch holds on the vector path (V): the
+// fewest that let P threads cover the lane stride, up to four, in 8 B or
+// 16 B loads the stride allows, and at most 32 / P (which bounds the
+// kernels built).
+int lane_vector(int p, int lane_stride) {
+  int v = 1;
+  while (v < 4 && lane_stride % (2 * v) == 0 && p * 2 * v <= 32 && lane_stride >= 2 * v * p) {
+    v <<= 1;
+  }
+  return v;
+}
+
+// Threads that own a row of a lane launch on the vector path: V lanes
+// each up to a warp, and at least P (one a unit of a round).
+int lane_row_threads(int p, int v, int lane_stride) {
+  int t = p;
+  while (t * v < lane_stride && t < 32) t <<= 1;
+  return t;
+}
+
+// cudaErrorInvalidConfiguration, before any launch, where a warp's shared
+// memory (its P accumulators of each of a set's rows' S lanes) is more
+// than a block may have: about 1,800 lanes at K >= 512, 7,000 at K = 128.
+template <typename IdxT, int P, int V, int OP>
+cudaError_t launch_lane_rows(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                             float* o, int k, int tr, int window, cudaStream_t stream) {
+  const int t = lane_row_threads(P, V, la.stride);
+  const int per_warp_smem = LaneSmem<IdxT, P>(32 / t, la.stride).bytes;
+  if (per_warp_smem > kBlockSmem) return cudaErrorInvalidConfiguration;
+  long long longest = 0;
+  for (int s = 0; s < a.n; ++s) {
+    longest = a.row0[s + 1] - a.row0[s] > longest ? a.row0[s + 1] - a.row0[s] : longest;
+  }
+  const long long per_warp = static_cast<long long>(kLaneRowSets) * (32 / t);
+  const int chunks = static_cast<int>((longest + per_warp - 1) / per_warp);
+  const long long warps = static_cast<long long>(chunks) * a.n;
+  // as many warps a block as fit kLaneBlocksPerSM blocks in an SM
+  int wpb = kWarpsPerBlock;
+  while (wpb > 1 && kLaneBlocksPerSM * wpb * per_warp_smem > kBlockSmem) wpb >>= 1;
+  const int smem = wpb * per_warp_smem;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(ell_partials_lanes_kernel<IdxT, P, V, OP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(static_cast<unsigned>((warps + wpb - 1) / wpb));
+  ell_partials_lanes_kernel<IdxT, P, V, OP><<<grid, dim3(wpb * 32), smem, stream>>>(
+      a, la, x, o, k, tr, window, t, chunks);
+  return cudaSuccess;
+}
+
+// One arm: its combine at compile time; several: each lane's at run time.
+template <typename IdxT, int P, int V>
+cudaError_t launch_lane_rows(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                             float* o, int k, int tr, int window, cudaStream_t stream) {
+  switch (la.n_arms > 1 ? kPerLane : la.arm_op[0]) {
+    case kSum:
+      return launch_lane_rows<IdxT, P, V, kSum>(a, la, x, o, k, tr, window, stream);
+    case kMin:
+      return launch_lane_rows<IdxT, P, V, kMin>(a, la, x, o, k, tr, window, stream);
+    case kMax:
+      return launch_lane_rows<IdxT, P, V, kMax>(a, la, x, o, k, tr, window, stream);
+    default:
+      return launch_lane_rows<IdxT, P, V, kPerLane>(a, la, x, o, k, tr, window, stream);
+  }
+}
+
+template <typename IdxT, int P>
+cudaError_t launch_lane_rows(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                             float* o, int k, int tr, int window, cudaStream_t stream) {
+  const int v = lane_vector(P, la.stride);
+  if constexpr (P <= 8) {
+    if (v == 4) return launch_lane_rows<IdxT, P, 4>(a, la, x, o, k, tr, window, stream);
+  }
+  if constexpr (P <= 16) {
+    if (v == 2) return launch_lane_rows<IdxT, P, 2>(a, la, x, o, k, tr, window, stream);
+  }
+  return launch_lane_rows<IdxT, P, 1>(a, la, x, o, k, tr, window, stream);
+}
+
+// The vector path (lanes_per_row > 0) takes the lane-row kernel, whose P
+// is lanes_per_row; the warp-per-row path the scalar kernel in chunks of nl.
 template <typename IdxT>
-void launch_lanes(const PartialsArgs& a, const LaneArgs& la, const float* x,
-                  float* o, int k, int tr, int window, int lanes_per_row,
-                  int nl, cudaStream_t stream) {
+cudaError_t launch_lanes(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                         float* o, int k, int tr, int window, int lanes_per_row,
+                         int nl, cudaStream_t stream) {
+  switch (lanes_per_row) {
+    case 0:
+      break;
+    case 1:
+      return launch_lane_rows<IdxT, 1>(a, la, x, o, k, tr, window, stream);
+    case 2:
+      return launch_lane_rows<IdxT, 2>(a, la, x, o, k, tr, window, stream);
+    case 4:
+      return launch_lane_rows<IdxT, 4>(a, la, x, o, k, tr, window, stream);
+    case 8:
+      return launch_lane_rows<IdxT, 8>(a, la, x, o, k, tr, window, stream);
+    case 16:
+      return launch_lane_rows<IdxT, 16>(a, la, x, o, k, tr, window, stream);
+    default:
+      return launch_lane_rows<IdxT, 32>(a, la, x, o, k, tr, window, stream);
+  }
   switch (nl) {
     case 1:
-      launch_partials<IdxT, kPerLane, 1, true>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_scalar<IdxT, kPerLane, 1, true>(a, la, x, o, k, tr, window, stream);
       break;
     case 4:
-      launch_partials<IdxT, kPerLane, 4, true>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_scalar<IdxT, kPerLane, 4, true>(a, la, x, o, k, tr, window, stream);
       break;
     default:
-      launch_partials<IdxT, kPerLane, 8, true>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+      launch_scalar<IdxT, kPerLane, 8, true>(a, la, x, o, k, tr, window, stream);
       break;
   }
+  return cudaSuccess;
 }
 
 // Fills the shard table; returns false on a bad shape.
@@ -570,6 +1006,8 @@ extern "C" int ell_partials_sentinel(const void* const* idx,
 // table 16 B aligned for nl > 1.  cid: n_lanes int32 on the device;
 // arm_ops: n_arms combines on the host.  out: the lane-minor partials
 // [sum n_ell, lane_stride], 16 B aligned (padding columns written as 0).
+// Returns cudaErrorInvalidConfiguration, launching nothing, where the
+// vector path's shared memory does not fit the lane stride.
 extern "C" int ell_partials_lanes(const void* const* idx,
                                   const void* const* mask,
                                   const void* const* tile_window,
@@ -584,6 +1022,7 @@ extern "C" int ell_partials_lanes(const void* const* idx,
   if (bad_shape(n_shards, k, tr, window, idx_bytes, vec) ||
       (nl != 1 && nl != 4 && nl != 8) || lane_stride < n_lanes ||
       lane_stride % nl ||
+      static_cast<long long>(window) * lane_stride >= (1LL << 31) ||  // 32-bit offsets
       (nl > 1 && (reinterpret_cast<uintptr_t>(msgs) % 16 ||
                   reinterpret_cast<uintptr_t>(out) % 16)) ||
       !fill_partials(&a, idx, mask, tile_window, n_ell, n_shards) ||
@@ -596,12 +1035,11 @@ extern "C" int ell_partials_lanes(const void* const* idx,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const int p = lanes_per_row(k, vec);
-  if (idx_bytes == 2) {
-    launch_lanes<int16_t>(a, la, x, o, k, tr, window, p, nl, s);
-  } else {
-    launch_lanes<int32_t>(a, la, x, o, k, tr, window, p, nl, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = idx_bytes == 2
+                            ? launch_lanes<int16_t>(a, la, x, o, k, tr, window, p, nl, s)
+                            : launch_lanes<int32_t>(a, la, x, o, k, tr, window, p, nl, s);
+  const cudaError_t last = cudaGetLastError();  // read, so none is left behind
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // perm/row_ptr: n_shards device pointers each; n_ell and rows: each shard's

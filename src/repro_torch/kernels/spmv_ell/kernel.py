@@ -24,7 +24,11 @@ note there gives each one's bound and design):
   segment combines of those two updates: ``[L, rows]``.
 
 Lane l of a lane kernel is bitwise the single-lane kernel on message row
-l: both are one templated device body.  The lane kernels keep the lanes
+l: the lane partials read each ELL row once for all lanes, with the lanes
+on threads, and fold a lane's slots into the single-lane kernel's
+accumulators in its order, then through its tree (the source note gives
+the argument).
+The lane kernels keep the lanes
 side by side (lane-minor): they read the messages as ``[n, S]`` and write
 the partials as ``[n_ell, S]``.  The public functions keep the
 reference's ``[L, n]`` layout: they take that tensor or a
@@ -291,8 +295,13 @@ segment_combine.launches = 0
 
 
 # ------------------------------------------------------------------- lanes
+_CUDA_INVALID_CONFIGURATION = 9  # ell_partials_lanes: the stride does not fit
+
+
 def lane_chunk(n_lanes: int) -> int:
-    """Lanes a thread of the lane kernels holds at once (``NL``): 1, 4 or 8."""
+    """``NL``, 1, 4 or 8: the lane stride of the lane-minor tables is a
+    multiple of it, and the lane combine and the lane partials' warp-per-row
+    path hold that many lanes a thread at once."""
     return 1 if n_lanes == 1 else 4 if n_lanes <= 4 else 8
 
 
@@ -416,6 +425,10 @@ def _launch_partials_lanes(name, idx, mask, tile_window, lanes: LaneMessages,
                 n_lanes, lane_chunk(n_lanes), combine_ids.data_ptr(),
                 _arm_ops(combines), len(combines), out.data_ptr(), k, tr,
                 window, _stream(vm.device))
+    if rc == _CUDA_INVALID_CONFIGURATION:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}: a lane stride "
+                           f"of {vm.shape[1]} at K={k} needs more shared memory "
+                           f"than a block has")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out.t()[:n_lanes]

@@ -161,8 +161,8 @@ def test_engine_cuda_matches_torch_backend(dev, tmp_path, name):
 
 
 # ------------------------------------------------------------------- lanes
-def _lane_shards(dev, window, k, tr, n_shards=3, seed=42):
-    g = rmat_graph(1500, 20000, seed=seed)
+def _lane_shards(dev, window, k, tr, n_shards=3, seed=42, graph="rmat"):
+    g = rmat_graph(1500, 20000, seed=seed) if graph == "rmat" else star_graph(10_000)
     _, shards = preprocess(g, num_shards=n_shards)
     return g.num_vertices, [ell_to_device(csr_to_ell(s, g.num_vertices,
                                                      window=window, k=k, tr=tr),
@@ -184,16 +184,25 @@ def _misaligned(t):
     return out
 
 
-@pytest.mark.parametrize("window,k,tr", [(256, 8, 8), (512, 32, 8),
-                                         (1024, 128, 8)])
-@pytest.mark.parametrize("n_lanes", [1, 3, 8, 13, 32])
+#: (graph, window, K, TR): the star hub fills its K=128 rows, so all 8
+#: 16-slot groups hold values, and its K=1024 rows, where a thread of the
+#: single-lane kernel folds two groups; W = 65536 takes int32 indices
+LANE_CASES = [("rmat", 256, 8, 8), ("rmat", 512, 32, 8), ("rmat", 1024, 128, 8),
+              ("star", 1024, 128, 8), ("star", 1024, 1024, 8),
+              ("rmat", 1 << 16, 128, 8)]
+
+
+@pytest.mark.parametrize("graph,window,k,tr", LANE_CASES)
+@pytest.mark.parametrize("n_lanes", [1, 3, 8, 13, 16, 32, 33, 64])
 @pytest.mark.parametrize("combine", COMBINES)
-def test_lane_kernels_bitwise_single_lane_and_plain(dev, window, k, tr,
+def test_lane_kernels_bitwise_single_lane_and_plain(dev, graph, window, k, tr,
                                                     n_lanes, combine):
     """Lane l of the lane kernels is bitwise the single-lane kernels on
     message row l (sum included), on the vector path and on the
-    warp-per-row path, and matches the plain versions."""
-    _, ds = _lane_shards(dev, window, k, tr)
+    warp-per-row path, and matches the plain versions; 33 and 64 lanes
+    cross a warp's 32."""
+    _, ds = _lane_shards(dev, window, k, tr, n_shards=2 if graph == "star" else 3,
+                         graph=graph)
     n_pad = ds[0].num_windows * ds[0].window
     msgs = _lane_msgs(dev, n_lanes, n_pad, combine)
     kw = dict(window=window, tr=tr, combine=combine)
@@ -218,10 +227,34 @@ def test_lane_kernels_bitwise_single_lane_and_plain(dev, window, k, tr,
         assert _close(acc.cpu(), plain_acc.cpu(), combine)
 
 
+def test_lane_stride_past_shared_memory_is_refused(dev):
+    """At K=512 a warp of the lane partials keeps 32 accumulators of every
+    lane in shared memory: 1,800 lanes fit a block's 227 KB and stay
+    bitwise the single-lane kernel; 2,048 are refused before any launch,
+    with the reason, and leave no error behind."""
+    _, ds = _lane_shards(dev, 1024, 512, 8)
+    n_pad = ds[0].num_windows * ds[0].window
+    planes = ([d.idx for d in ds], [d.mask for d in ds], [d.tile_window for d in ds])
+    kw = dict(window=1024, tr=8, combine="sum")
+    msgs = _lane_msgs(dev, 1800, n_pad, "sum")
+    part = K.ell_partials_lanes(*planes, msgs, **kw)
+    for l in (0, 1, 1799):
+        assert torch.equal(part[l], K.ell_partials_masked(*planes, msgs[l], **kw))
+    before = K.ell_partials_lanes.launches
+    with pytest.raises(RuntimeError, match="CUDA error 9: a lane stride of 2048 at K=512"):
+        K.ell_partials_lanes(*planes, _lane_msgs(dev, 2048, n_pad, "sum"), **kw)
+    assert K.ell_partials_lanes.launches == before
+    assert torch.equal(K.ell_partials_lanes(*planes, msgs[:3], **kw), part[:3])
+
+
 @pytest.mark.parametrize("counts,combines", [
     ((3, 5), ("min", "sum")), ((1, 1, 1), ("sum", "min", "max")),
-    ((16, 16), ("min", "sum")), ((2, 4), ("min", "min"))])
+    ((16, 16), ("min", "sum")), ((2, 4), ("min", "min")),
+    ((2, 3, 4), ("min", "sum", "max"))])
 def test_ragged_bitwise_multi_and_padding_zero(dev, counts, combines):
+    """Ragged is bitwise the per-group launches and each lane bitwise the
+    single-lane kernel with its arm; padding lanes are 0.  (2, 3, 4) puts
+    three arms and a padding lane (10 lanes for 9) in one warp."""
     _, ds = _lane_shards(dev, 512, 32, 8, n_shards=4)
     n = ds[0].num_vertices
     rng = np.random.default_rng(11)
@@ -247,8 +280,12 @@ def test_ragged_bitwise_multi_and_padding_zero(dev, counts, combines):
     plain = K.ell_partials_ragged_plain(
         [d.idx for d in ds], [d.mask for d in ds], [d.tile_window for d in ds],
         ctx["cids"], ctx["msgs"], window=512, tr=8, combines=ctx["combines"])
+    planes = ([d.idx for d in ds], [d.mask for d in ds], [d.tile_window for d in ds])
     for l, c in enumerate(K._lane_combines(ctx["cids"].cpu(), ctx["combines"])):
         assert _close(part[l].cpu(), plain[l].cpu(), c or "min")
+        if c is not None:
+            assert torch.equal(part[l], K.ell_partials_masked(
+                *planes, ctx["msgs"].rows[l], window=512, tr=8, combine=c))
 
 
 def test_service_on_the_card_ragged_multi_solo(dev, tmp_path):

@@ -303,3 +303,103 @@ def test_lane_minor_table_for_the_lane_combine():
     assert K._lane_minor(one) == (one, 1)
     got, stride = K._lane_minor(torch.ones(3, 7))
     assert stride == 4 and got.shape == (7, 4) and not got[:, 3].any()
+
+
+# ------------------------------------------------ the lane kernel's fold order
+# A model of the two CUDA partials bodies for one row and one lane
+# (``csrc/spmv_ell.cu``), in float32 with the card's fold arithmetic: the
+# single-lane kernel spreads a row over P threads, thread ``sub`` folding
+# its 16-slot groups sub, sub + P, ... in slot order, then an xor-shuffle
+# tree folds the threads; the lane kernel reads the row once, folds slot s
+# into accumulator (s // 16) % P, then folds the P accumulators in the
+# same tree, leaving out each fold with an accumulator nothing was folded
+# into (it holds the identity, and an accumulator is never -0.0 nor, for
+# min/max, NaN, so such a fold changes no bit).
+_FOLD = {"sum": lambda a, b: np.float32(a + b), "min": np.fmin, "max": np.fmax}
+_IDENTITY = {"sum": np.float32(0.0), "min": np.float32(np.inf),
+             "max": np.float32(-np.inf)}
+
+
+def _threads_a_row(k):
+    """``lanes_per_row`` of the C source: 16-slot groups rounded up to a
+    power of two, at most 32."""
+    p = 1
+    while p < k // 16 and p < 32:
+        p <<= 1
+    return p
+
+
+def _single_lane_fold(vals, mask, combine):
+    k, p, fold = len(vals), _threads_a_row(len(vals)), _FOLD[combine]
+    acc = [_IDENTITY[combine]] * p
+    for sub in range(p):
+        for c in range(sub * 16, k, p * 16):
+            for s in range(c, c + 16):
+                if mask[s]:
+                    acc[sub] = fold(acc[sub], vals[s])
+    off = p // 2
+    while off:  # every thread t folds its partner t ^ off
+        acc = [fold(acc[t], acc[t ^ off]) for t in range(p)]
+        off //= 2
+    return acc[0]
+
+
+def _lane_row_fold(vals, mask, combine):
+    k, p, fold = len(vals), _threads_a_row(len(vals)), _FOLD[combine]
+    acc = [_IDENTITY[combine]] * p
+    touched = [False] * p
+    units = k // 16
+    for rd in range(-(-units // p)):  # rounds of P units
+        for m in range(p):
+            u = rd * p + m
+            for s in range(16 * u, 16 * u + 16 if u < units else 0):
+                if mask[s]:
+                    acc[m] = fold(acc[m], vals[s])
+                    touched[m] = True
+    off = p // 2
+    while off:  # folds with an accumulator still at the identity are left out
+        for t in range(off):
+            if touched[t + off]:
+                acc[t] = fold(acc[t], acc[t + off])
+            touched[t] = touched[t] or touched[t + off]
+        off //= 2
+    return acc[0]
+
+
+@pytest.mark.parametrize("k,rows", [(16, 200), (32, 200), (128, 90), (1024, 8)])
+@pytest.mark.parametrize("combine", COMBINES)
+def test_lane_kernel_fold_order_is_the_single_lane_order(k, rows, combine):
+    """The lane kernel's order (P accumulators, then a P-way tree without
+    its folds of untouched accumulators) gives the single-lane kernel's
+    bits on rows holding -0.0, +-inf and NaN among values of mixed
+    magnitude, full, front-packed, scattered and empty masks; a plain
+    slot-order fold does not, so the check can fail."""
+    rng = np.random.default_rng(k)
+    special = np.float32([-0.0, 0.0, np.inf, -np.inf, np.nan])
+    differs = 0
+    with np.errstate(invalid="ignore", over="ignore"):  # inf - inf, NaN
+        for r in range(rows):
+            differs += _check_fold_order(rng, k, r, special, combine)
+    if combine == "sum" and k > 16:
+        assert differs > 0
+
+
+def _check_fold_order(rng, k, r, special, combine):
+    """One row: asserts the two kernels' bits agree; returns whether a
+    plain slot-order fold gives other bits."""
+    vals = (rng.standard_normal(k) * 10.0 ** rng.integers(-6, 7, k)).astype(np.float32)
+    pick = rng.random(k) < (0.0, 0.01, 0.15)[r % 3]  # some rows all finite
+    vals[pick] = rng.choice(special, int(pick.sum()))
+    if r % 4 == 0:
+        mask = np.ones(k, bool)
+    elif r % 4 == 1:
+        mask = np.arange(k) < rng.integers(0, k + 1)
+    else:
+        mask = rng.random(k) < rng.random()
+    want = _single_lane_fold(vals, mask, combine)
+    got = _lane_row_fold(vals, mask, combine)
+    assert np.float32(got).view(np.uint32) == np.float32(want).view(np.uint32), (r, got, want)
+    flat = _IDENTITY[combine]
+    for v in vals[mask]:
+        flat = _FOLD[combine](flat, v)
+    return bool(np.float32(flat).view(np.uint32) != np.float32(want).view(np.uint32))

@@ -83,10 +83,12 @@ line):
             the 32 B sectors of idx that hold valid slots, the message
             sectors they gather, tile_window and the output (see
             spmv_ell.cu).  segment_combine and index_add_ take turns,
-            200 calls each: their medians and spreads.  The lane partials'
-            earlier times are recorded beside the new ones.  The window
-            staging probe times the masked and the lanes kernels with
-            every tile gathering from window 0, which stays in L2.
+            200 calls each: their medians and spreads.  The lane combine
+            is timed ragged and with one arm.  Earlier designs' times (the
+            lane partials, the masked partials, the lane combine) are
+            recorded beside the new ones.  The window staging probe times
+            the masked and the lanes kernels with every tile gathering
+            from window 0, which stays in L2.
 9. sentinel ell_update(variant="sentinel") on the main path's first batch
             (shards 0-3) with PageRank's first messages, sum/min/max: its
             3 launches counted; partials and update bitwise the masked
@@ -161,12 +163,15 @@ KERNELS = {
     "flash_decode": ("src/repro/kernels/flash_attention/kernel.py:129",
                      " S=32768", DECODE_CU),
 }
-#: the lane partials' earlier design (lanes in register chunks of 8, the
-#: row walked again for each chunk) in this script's timing phase on the
-#: same batch: NVIDIA H100 80GB HBM3 at 700 W, kept beside the new times
-EARLIER_LANE_MS = {"ell_partials_lanes L=16": 1.0867, "ell_partials_lanes L=32": 1.9869,
-                   "ell_partials_ragged L=16": 1.1250,
-                   "ell_partials_ragged L=32": 2.0670}
+#: earlier designs' times in this script's timing phase on the same batch
+#: (NVIDIA H100 80GB HBM3 at 700 W), kept beside the new times: the lane
+#: partials' first design (lanes in register chunks of 8, the row walked
+#: again for each chunk); the masked partials' warp-set-and-exit design and
+#: the lane combine's warp a row in chunks of 8 lanes, as redesigned since
+EARLIER_MS = {"ell_partials_lanes L=16": 1.0867, "ell_partials_lanes L=32": 1.9869,
+              "ell_partials_ragged L=16": 1.1250, "ell_partials_ragged L=32": 2.0670,
+              "ell_partials_masked": 0.1973,
+              "segment_combine_lanes L=16": 0.1253, "segment_combine_lanes L=32": 0.2334}
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 #: H100 SXM float32 outside the tensor cores; the bound of 32-bit integer
 #: work too (its published rate is no higher), so the bound stays a least time
@@ -854,7 +859,8 @@ class Smoke:
         """The lane kernels on the same batch at 16 and 32 lanes: the lanes
         kernel with the sum combine; the ragged kernel and the lane combine
         with half the lanes on a min arm and half on a sum arm, as a fusion
-        set of BFS/SSSP and PPR lanes."""
+        set of BFS/SSSP and PPR lanes; the lane combine also with one sum
+        arm on the lanes kernel's partials, as a per-group sweep."""
         import numpy as np
         torch = self.torch
         dev = first.idx.device
@@ -899,19 +905,29 @@ class Smoke:
                 plain_ms=self.timed(lambda: K.ell_partials_ragged_plain(
                     *args, cids, lanes, combines=arms, **kw), 1),
                 library_ms=None, bytes=pbytes)
+            cbytes = 4 * (L * n_valid + n_valid + rows + len(ptrs) + L * rows + L)
+            library_ms = self.timed(lambda: lib.zero_().index_add_(1, seg, part), 20)
             t[f"segment_combine_lanes L={L}"] = dict(
                 ms=self.timed(lambda: K.segment_combine_lanes(
                     rpart, perms, ptrs, arms, cids), 20),
                 plain_ms=self.timed(lambda: K.segment_combine_lanes_plain(
                     rpart, perms, ptrs, arms, cids), 2),
-                library_ms=self.timed(
-                    lambda: lib.zero_().index_add_(1, seg, part), 20),
-                bytes=4 * (L * n_valid + n_valid + rows + len(ptrs) + L * rows + L))
+                library_ms=library_ms, bytes=cbytes)
+            # one arm, as the per-group sweeps launch it: a compile-time combine
+            acc = K.segment_combine_lanes(part, perms, ptrs, ("sum",))
+            self.compare_lanes("segment_combine_lanes", acc, K.segment_combine_lanes_plain(
+                part, perms, ptrs, ("sum",), lanes.uniform_ids()), ["sum"] * L, "main batch")
+            t[f"segment_combine_lanes one arm L={L}"] = dict(
+                ms=self.timed(lambda: K.segment_combine_lanes(
+                    part, perms, ptrs, ("sum",)), 20),
+                plain_ms=self.timed(lambda: K.segment_combine_lanes_plain(
+                    part, perms, ptrs, ("sum",), lanes.uniform_ids()), 2),
+                library_ms=library_ms, bytes=cbytes)
             del x, lanes, part, rpart, acc, lib
         for kname, d in t.items():
             d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
-            if kname in EARLIER_LANE_MS:
-                d["earlier_ms"] = EARLIER_LANE_MS[kname]
+            if kname in EARLIER_MS:
+                d["earlier_ms"] = EARLIER_MS[kname]
             if " L=" in kname:
                 print(f"  {kname}: {json.dumps(d)}")
         self.report["lane_timing"] = {k: d for k, d in t.items() if " L=" in k}

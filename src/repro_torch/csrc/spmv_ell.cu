@@ -8,9 +8,9 @@
 // launch folds exactly the values, in exactly the order, that a
 // single-lane launch on message row l folds, so the two agree bitwise: on
 // the warp-per-row path they share one templated body (a lane count of 1
-// and a compile-time combine for the single-lane one), on the vector path
-// the lane kernel keeps the single-lane kernel's accumulators and tree
-// (see ell_partials_lanes).
+// and a compile-time combine for the single-lane one); on the vector path
+// every kernel keeps the single-lane order's accumulators and tree (see
+// ell_partials_masked, ell_partials_lanes and segment_combine_lanes).
 //
 // ell_partials_masked  replaces the TPU kernel
 //     src/repro/kernels/spmv_ell/kernel.py::ell_partials_masked
@@ -21,18 +21,52 @@
 //   move is the whole mask plane (1 B a slot: it is the only way to find
 //   the valid slots), the 32 B sectors of idx that hold valid slots (about
 //   one a row), the message sectors those slots gather, tile_window, and
-//   one float out per row.  Most of the idx plane is never read.
-//   Design (K % 16 == 0, 16 B aligned planes): a row is spread over
-//   P = K/16 threads (rounded up to a power of two, at most 32), so a warp
-//   works on 32/P rows at once; a thread loads 16 mask bytes in one 16 B
-//   load, and only if any is set the 16 indices, then gathers the set
-//   slots with predicated loads that can all be in flight together.
-//   Otherwise (any K) a warp takes one row, a thread one slot in 32.  No
-//   shared-memory staging of the W-wide message window (the TPU kernel's
-//   VMEM table): the gathers are few, and the whole message array (8 MB at
-//   2^21 vertices) sits in L2.  A thread folds its slots in ascending
-//   order and a fixed xor-shuffle tree folds the threads of a row, so a
-//   result never changes from run to run or with the batch.
+//   one float out per row.  Most of the idx plane is never read.  On the
+//   smoke's batch the mask plane is 73% of those bytes, so the kernel is a
+//   stream of the mask plane with a little gather work on the side.
+//   The single-lane order, which every partials kernel keeps: a row's
+//   16-slot units are dealt to P = K/16 accumulators (rounded up to a
+//   power of two, at most 32), accumulator p folding the set slots of
+//   units p, p + P, ... in ascending slot order from the identity; then
+//   the P accumulators are folded in a fixed tree, acc[q] = fold(acc[q],
+//   acc[q + off]) for q < off, off = P/2 ... 1 (an xor-shuffle tree over P
+//   threads, as seen from its thread 0).  So a result never changes from
+//   run to run or with the batch.
+//   Design (K % 16 == 0, 16 B aligned planes, K <= 128): a warp takes one
+//   set of 32 rows, a thread a row.  A thread loads its row's P mask units
+//   (all in flight at once: 32 rows' masks are 4 KB a warp at K = 128),
+//   and ballots list the set's items: (row, accumulator p) with a set
+//   slot.  The items go to the warp's threads in turn; an item's thread
+//   reads its unit's 16 indices once and issues its 16 gathers before its
+//   first fold, and leaves the accumulator in shared memory; then thread
+//   t folds row t's accumulators in the tree and the warp stores the 32
+//   partials in one coalesced run.  So one dependent chain (mask, indices,
+//   gathers) serves 32 rows, where a row over P threads served 32 / P.
+//   The sets of the batch's shards are interleaved (warp g: set g / n of
+//   shard g % n), so the warps in flight gather from the same windows.
+//   Two things keep the gathers in flight together.  No load is
+//   predicated (a predicated load's register is moved out at once, which
+//   waits for it), and an unset slot of an item's unit loads the
+//   combine's identity from a fixed device slot (it stays in L1) and
+//   folds it, so the folds need no predicate a slot (a warp has 7; short
+//   of them the compiler interleaves loads and folds, one round trip
+//   each).  Folding the identity changes no bit, for the reason given
+//   below (ell_partials_lanes): an accumulator is never -0.0, nor NaN for
+//   min/max.  The tree leaves out the folds whose second operand is an
+//   accumulator with no item, for that reason too.  So the partials are
+//   bitwise the single-lane order.  K > 128 (P = 16, 32, rows too wide
+//   for a thread's registers) takes the vector body that the sentinel
+//   kernel shares: a row over P threads, each folding its units in the
+//   single-lane order, then an xor-shuffle tree.  Otherwise (any K) a warp
+//   takes one row, a thread one slot in 32.  No shared-memory staging of
+//   the W-wide message window (the TPU kernel's VMEM table): the gathers
+//   are few, and the whole message array (8 MB at 2^21 vertices) sits in
+//   L2.  Designs that measured slower on the smoke's batch: a persistent
+//   warp streaming its run of the mask plane through a shared-memory ring
+//   by bulk copies (cp.async.bulk on mbarriers), per warp or per block,
+//   and a register pipeline of the vector body three sets deep.  The
+//   ring's shared memory held occupancy to 16 warps an SM, and every
+//   longer run of sets a warp lost to the tail of its heaviest rows.
 //
 // ell_partials_sentinel  replaces the TPU kernel
 //     src/repro/kernels/spmv_ell/kernel.py::ell_partials_sentinel
@@ -47,14 +81,16 @@
 //   tile_window and one float out per row.  Where most slots are padding
 //   that is more than the masked kernel moves: its 1 B mask plane plus
 //   only the idx sectors of set slots.
-//   Design: the masked kernel's body with the mask test compiled out (a
-//   template flag): the same row over K/16 threads, 16 indices a 32 B
-//   load, the same ascending fold and xor-shuffle tree.  A padding slot
-//   folds the identity, which leaves every partial's bits unchanged
-//   (x + 0 == x for the sum, which never holds -0; fminf/fmaxf with
-//   +inf/-inf), so sentinel partials are bitwise the masked partials on
-//   the same slots, for all three combines.  The identity slots of a
-//   window share one sector, which stays in L1.
+//   Design: the masked partials' vector body with the mask test compiled
+//   out (a template flag): a row over P threads, thread p folding all 16
+//   slots of units p, p + P, ... (16 indices a 32 B load) in ascending
+//   order, then an xor-shuffle tree over the row's threads: the
+//   single-lane order over every slot.  A padding slot folds the
+//   identity, which leaves every
+//   partial's bits unchanged (x + 0 == x for the sum, which never holds
+//   -0; fminf/fmaxf with +inf/-inf), so sentinel partials are bitwise the
+//   masked partials on the same slots, for all three combines.  The
+//   identity slots of a window share one sector, which stays in L1.
 //
 // ell_partials_lanes  replaces both the vmapped TPU kernel of the lane
 //     update (src/repro/kernels/spmv_ell/ops.py::_update_lanes_jit) and the
@@ -105,20 +141,17 @@
 //   (P x S floats a row of its set) must fit a block's shared memory: a
 //   lane stride past that (about 1,800 lanes at K >= 512) is refused
 //   before any launch, as no other kernel keeps the fold order.
-//   Why lane l is bitwise the single-lane kernel on row l: that kernel
-//   spreads a row over P threads, thread p folding the slots of units p,
-//   p + P, ... in ascending order from the identity, then folds the P
-//   results in an xor-shuffle tree (offsets P/2 ... 1).  Here accumulator
-//   p of a lane folds exactly those slots in that order (one item), and
-//   the accumulators are folded in that tree as seen from its thread 0:
-//   acc[q] = fold(acc[q], acc[q + off]) for q < off.  Only the folds whose
-//   second operand is an accumulator with no item are left out, and they
-//   change no bit: that operand is the identity, and an accumulator is
-//   never -0.0 (it starts at +0.0, and x + y is -0.0 only if both are;
-//   nothing is flushed to zero: no fast-math flags) nor, for min/max, NaN
-//   (fminf/fmaxf return the non-NaN operand, and it starts at +-inf), so
-//   x + 0 == x, fminf(x, +inf) == x and fmaxf(x, -inf) == x, NaN sums
-//   being the card's one canonical NaN either way.  No fold is reordered.
+//   Why lane l is bitwise the single-lane kernel on row l: accumulator p
+//   of a lane folds exactly the slots of the single-lane order's
+//   accumulator p, in that order (one item), and the accumulators are
+//   folded in that order's tree.  Only the folds whose second operand is
+//   an accumulator with no item are left out, and they change no bit:
+//   that operand is the identity, and an accumulator is never -0.0 (it
+//   starts at +0.0, and x + y is -0.0 only if both are; nothing is flushed
+//   to zero: no fast-math flags) nor, for min/max, NaN (fminf/fmaxf return
+//   the non-NaN operand, and it starts at +-inf), so x + 0 == x,
+//   fminf(x, +inf) == x and fmaxf(x, -inf) == x, NaN sums being the
+//   card's one canonical NaN either way.  No fold is reordered.
 //   tests/test_torch_lanes.py models both orders in numpy, bitwise.  No
 //   tensor cores: the lanes are independent float reductions.
 //   Otherwise (any K) the warp-per-row body of the single-lane kernel, NL
@@ -132,19 +165,34 @@
 //   ascending order, then a fixed xor-shuffle tree folds the threads.  No
 //   atomics and a fixed order, so batched and per-shard launches give the
 //   same bits.  Bound: memory — the partials of the non-padding rows, perm
-//   and row_ptr read once, out written once.  The lane combine below is
-//   the same templated body with a lane count of 1.
+//   and row_ptr read once, out written once.
 //
 // segment_combine_lanes  replaces the vmapped segment combine of the lane
 //     update and the per-arm combine plus select of the ragged update
 //     (src/repro/kernels/spmv_ell/ops.py::_update_lanes_ragged_jit)
 //   out[l, r] as segment_combine on lane l of the lane-minor partials with
-//   lane l's own arm; padding lanes are written as 0.  The segment_combine
-//   body with a lane chunk: a warp per destination row, thread t folding
-//   j = row_ptr[r] + t, + 32, ... for NL lanes at once (one perm load, one
-//   contiguous run of partials), then the same xor tree per lane, so lane
-//   l is bitwise segment_combine on lane l.  Bound: memory — L floats of
-//   each non-padding partial, perm and row_ptr once, L outputs a row.
+//   lane l's own arm; padding lanes are written as 0.
+//   Bound: memory — L floats of each non-padding partial, perm and row_ptr
+//   once, L outputs a row.  On the smoke's batch that is about 23 partial
+//   rows of L * 4 B each (128 B at L=32) for each destination row.
+//   Design: the lane axis on threads.  T threads own a destination row, a
+//   lane each (T = L rounded up to a power of two, at most 32; a wider
+//   launch takes the lanes in passes of 32), so a warp works on 32 / T
+//   rows at once and reads each partial row as one contiguous run of its
+//   lanes.  A row's thread group loads perm 32 entries at a time, T to a
+//   coalesced load, and hands them out by shuffle; each thread keeps the
+//   32 accumulators of its lane in registers, entry j folding into
+//   accumulator (j - row_ptr[r]) % 32, and issues a batch's 32 loads
+//   before its first fold.  That is segment_combine's thread t (which
+//   folds j = row_ptr[r] + t, + 32, ... in ascending order from the
+//   identity), and the accumulators are then folded in segment_combine's
+//   xor tree as seen from its thread 0, acc[q] = fold(acc[q], acc[q +
+//   off]) for q < off, all 31 folds, so lane l is bitwise segment_combine
+//   on lane l with nothing left out.  A launch with one arm folds with a
+//   compile-time combine; in a ragged one each thread folds its lane's
+//   arm (a branch a thread: the shuffles come before it).  A block stages
+//   its 32 or more destination rows in shared memory and writes each
+//   lane's run of them contiguously: the output is [L, rows].
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -169,6 +217,11 @@ constexpr int kLaneStages = 2;     // sets staged at once, in shared memory
 constexpr int kLaneBlocksPerSM = 3;  // 85 registers a thread at most
 constexpr int kGatherFloats = 16;    // floats a lane thread gathers at once
 constexpr int kBlockSmem = 227 * 1024;  // an H100 block's shared memory, opted in
+constexpr int kCombineWarps = 8;     // warps a block of the lane combine
+
+// Each combine's identity in device memory, for a load that stands in for
+// a slot with no message (it stays in L1).
+__device__ const float kIdentities[3] = {0.0f, INFINITY, -INFINITY};
 
 // The identity and the fold of a combine: OP when it is known at compile
 // time, else the run-time op of the lane (any op < 0 marks a padding lane,
@@ -276,10 +329,11 @@ __device__ __forceinline__ int shard_of(const T* first, int n, long long r) {
   return s;
 }
 
-// The single-lane partials on the vector path: a row over lanes_per_row
-// threads, thread sub folding its 16-slot units sub, sub + lanes_per_row,
-// ... in ascending slot order, then an xor-shuffle tree over the row's
-// threads.  The lane kernel reproduces this order (see the source note).
+// The single-lane partials on the vector path (the sentinel's, and the
+// masked partials' where K > 128): a row over lanes_per_row threads,
+// thread sub folding its 16-slot units sub, sub + lanes_per_row, ... in
+// ascending slot order (every slot without a mask plane), then an
+// xor-shuffle tree over the row's threads: the single-lane order.
 template <typename IdxT, int OP, bool MASKED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ell_partials_vec_kernel(const __grid_constant__ PartialsArgs a,
@@ -455,6 +509,31 @@ __device__ __forceinline__ void fold_unit(float (&acc)[V], const int (&op)[V], i
   }
 }
 
+// A row's result from its P accumulators (acc[q * stride], those in
+// `held`): the single-lane order's tree, acc[q] = fold(acc[q], acc[q +
+// off]) for q < off, off = P/2 ... 1, less its folds whose second operand
+// is an accumulator that holds no item.  Those hold the identity, and
+// fold(x, identity) is x bitwise for every x an accumulator can hold (see
+// the source note); a row with none is the identity.
+template <int P, int OP>
+__device__ __forceinline__ float held_tree(uint32_t held, int op, const float* acc_at,
+                                           int stride) {
+  if (held == 1u) return acc_at[0];  // accumulator 0 alone: no fold is left
+  float acc[P];
+  uint32_t left = held;
+#pragma unroll
+  for (int q = 0; q < P; ++q) acc[q] = (held >> q) & 1u ? acc_at[q * stride] : identity_of<OP>(op);
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int q = 0; q < off; ++q) {
+      if ((left >> (q + off)) & 1u) acc[q] = fold<OP>(op, acc[q], acc[q + off]);
+    }
+    left |= left >> off;
+  }
+  return acc[0];
+}
+
 // The lane partials on the vector path (see the source note).  A warp
 // walks its run of rows in sets of 32 / T rows.  Each set's work is a list
 // of items, one for each (row, accumulator p) that has a set slot: the
@@ -577,9 +656,7 @@ ell_partials_lanes_kernel(const __grid_constant__ PartialsArgs a,
       }
     }
     __syncwarp();
-    // Each row's tree, less its folds with an accumulator that holds no
-    // item of the row: those hold the identity, and fold(x, identity) is x
-    // bitwise for every x an accumulator can hold (see the source note).
+    // Each row's tree, a lane at a time (held_tree).
     const int r = r0 + g;
     if (r < rr.rows) {
       for (int b = 0; b < blocks; ++b) {
@@ -591,36 +668,126 @@ ell_partials_lanes_kernel(const __grid_constant__ PartialsArgs a,
         const uint32_t held = (items >> (g * P)) & row_units;
         const float* row_accs = accs + (g * P * stride + l0);
         float res[V];
-        if (held == 1u) {  // accumulator 0 alone: no fold of the tree is left
 #pragma unroll
-          for (int v = 0; v < V; ++v) res[v] = row_accs[v];
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; ++v) {  // a lane at a time: P values live
-            float acc[P];
-            uint32_t left = held;
-#pragma unroll
-            for (int q = 0; q < P; ++q) {
-              acc[q] = (held >> q) & 1u ? row_accs[q * stride + v] : identity_of<OP>(op[v]);
-            }
-#pragma unroll
-            for (int off = P / 2; off > 0; off >>= 1) {
-#pragma unroll
-              for (int q = 0; q < off; ++q) {
-                if ((left >> (q + off)) & 1u) acc[q] = fold<OP>(op[v], acc[q], acc[q + off]);
-              }
-              left |= left >> off;
-            }
-            res[v] = acc[0];
-          }
+        for (int v = 0; v < V; ++v) {
+          res[v] = op[v] < 0 ? 0.0f : held_tree<P, OP>(held, op[v], row_accs + v, stride);
         }
-#pragma unroll
-        for (int v = 0; v < V; ++v) res[v] = op[v] < 0 ? 0.0f : res[v];
         store<V>(out_rows + static_cast<long long>(r) * la.out_stride + l0, res);
       }
     }
     __syncwarp();  // every thread is done with this set before it is refilled
   }
+}
+
+// Index t of a 16-slot unit held as int4s (t a constant once unrolled).
+template <typename IdxT>
+__device__ __forceinline__ int unit_index(const int4 (&q)[kSlotsPerLane * sizeof(IdxT) / 16],
+                                          int t) {
+  constexpr int kPerVec = 16 / sizeof(IdxT);
+  const int4& v = q[t / kPerVec];
+  const int c = t % kPerVec * sizeof(IdxT) / 4;  // the 32-bit word holding it
+  const int w = c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+  if constexpr (sizeof(IdxT) == 2) {
+    return static_cast<int16_t>(w >> (16 * (t % 2)));  // little-endian halves
+  } else {
+    return w;
+  }
+}
+
+// The 16 gathers of one unit (bits w, indices q) from `table`, into x: no
+// load is predicated, and an unset slot loads the identity, so the fold
+// needs no predicate register a slot (a warp has 7) and all 16 loads are
+// in flight at once.  Folding an identity changes no bit (see the source
+// note).
+template <typename IdxT, int OP>
+__device__ __forceinline__ void gather_unit(float (&x)[kSlotsPerLane], uint32_t w,
+                                            const int4 (&q)[kSlotsPerLane * sizeof(IdxT) / 16],
+                                            const float* table, int window) {
+#pragma unroll
+  for (int t = 0; t < kSlotsPerLane; ++t) {
+    const int col = min(max(unit_index<IdxT>(q, t), 0), window - 1);
+    x[t] = __ldg((w >> t) & 1u ? table + col : kIdentities + OP);
+  }
+}
+
+template <int OP>
+__device__ __forceinline__ float fold_slots(float acc, const float (&x)[kSlotsPerLane]) {
+#pragma unroll
+  for (int t = 0; t < kSlotsPerLane; ++t) acc = fold<OP>(OP, acc, x[t]);
+  return acc;
+}
+
+// The masked partials on the vector path where K <= 128 (see the source
+// note).  A warp takes one set of 32 rows of one shard (warp g: set g / n
+// of shard g % n, so the warps in flight hold the same stretch of every
+// shard), thread t owning row t of the set: it loads the
+// row's P mask units, and ballots list the set's items, (row, accumulator
+// p) with a set slot, p-major.  The items are dealt to the warp's threads
+// in turn; an item's thread reads its unit's 16 indices, gathers and folds
+// them (an unset slot as the identity) and leaves the accumulator in
+// shared memory; then thread t folds row t's accumulators in the
+// single-lane tree, less its folds with an accumulator that holds no item,
+// and the warp stores the set's 32 partials in one coalesced run.
+template <typename IdxT, int P, int OP>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ell_partials_masked_kernel(const __grid_constant__ PartialsArgs a,
+                           const float* __restrict__ msgs, float* __restrict__ out,
+                           int k, int tr, int window) {
+  static_assert(P <= 8, "a thread holds its row's P mask units");
+  __shared__ float warp_accs[kWarpsPerBlock][32 * P];
+  constexpr int kVecs = kSlotsPerLane * sizeof(IdxT) / sizeof(int4);
+  const int lane = threadIdx.x & 31;
+  float* accs = warp_accs[threadIdx.x >> 5];
+  const int warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int s = warp % a.n;  // set warp / n of shard warp % n
+  const int n_rows = static_cast<int>(a.row0[s + 1] - a.row0[s]);
+  const int r0 = warp / a.n * 32;
+  if (r0 >= n_rows) return;  // whole warp leaves together
+  const uint8_t* mask = a.mask[s];
+  const IdxT* idx = static_cast<const IdxT*>(a.idx[s]);
+  const int32_t* tw = a.tile_window[s];
+  const int units = k / kSlotsPerLane;  // <= P
+  const int r = r0 + lane;
+  const bool live = r < n_rows;
+  const uint4* rm = reinterpret_cast<const uint4*>(mask + static_cast<long long>(live ? r : 0) * k);
+  uint4 mu[P];  // all the row's units in flight at once
+#pragma unroll
+  for (int u = 0; u < P; ++u) mu[u] = __ldg(rm + (u < units ? u : 0));
+  uint32_t held = 0u;  // the row's accumulators (one unit each) with a set slot
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    held |= live && u < units && (mu[u].x | mu[u].y | mu[u].z | mu[u].w) != 0u ? 1u << u : 0u;
+  }
+  uint32_t words[P];  // rows holding accumulator p
+  int n_items = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    words[p] = __ballot_sync(0xffffffffu, (held >> p) & 1u);
+    n_items += __popc(words[p]);
+  }
+  for (int it = lane; it < n_items; it += 32) {
+    int p = 0, row = 0, before = 0;
+#pragma unroll
+    for (int pp = 0; pp < P; ++pp) {
+      const int pc = __popc(words[pp]);
+      if (it >= before && it < before + pc) {
+        p = pp;
+        row = __fns(words[pp], 0, it - before + 1);
+      }
+      before += pc;
+    }
+    const long long at = static_cast<long long>(r0 + row) * k + p * kSlotsPerLane;
+    const uint32_t w = slot_bits(__ldg(reinterpret_cast<const uint4*>(mask + at)));
+    int4 q[kVecs];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) q[v] = __ldg(reinterpret_cast<const int4*>(idx + at) + v);
+    const float* table = msgs + static_cast<long long>(__ldg(tw + (r0 + row) / tr)) * window;
+    float x[kSlotsPerLane];
+    gather_unit<IdxT, OP>(x, w, q, table, window);
+    accs[row * P + p] = fold_slots<OP>(identity_of<OP>(OP), x);
+  }
+  __syncwarp();
+  if (live) out[a.row0[s] + r] = held_tree<P, OP>(held, OP, accs + lane * P, 1);
 }
 
 template <typename IdxT, int OP, int NL, bool MASKED>
@@ -672,9 +839,12 @@ ell_partials_scalar_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
   }
 }
 
-template <int OP, int NL>
+// The single-lane combine: a warp per destination row, thread t folding
+// j = row_ptr[r] + t, + 32, ... in ascending order, then an xor-shuffle
+// tree.  The lane combine reproduces this order (see the source note).
+template <int OP>
 __global__ void __launch_bounds__(kCombineThreads)
-segment_combine_kernel(const __grid_constant__ CombineArgs a, LaneArgs la,
+segment_combine_kernel(const __grid_constant__ CombineArgs a,
                        const float* __restrict__ part,
                        float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
@@ -683,37 +853,142 @@ segment_combine_kernel(const __grid_constant__ CombineArgs a, LaneArgs la,
   const int s = shard_of(a.dst0, a.n, r);
   const int32_t* rp = a.row_ptr[s] + (r - a.dst0[s]);
   const int32_t* pm = a.perm[s];
-  const float* p = part + a.ell0[s] * la.stride;
+  const float* p = part + a.ell0[s];
   const int begin = __ldg(rp);
   const int end = __ldg(rp + 1);
-  const int n_lanes = OP == kPerLane ? la.n_lanes : 1;
-  for (int l0 = 0; l0 < n_lanes; l0 += NL) {
-    int op[NL];
-    float acc[NL];
+  float acc = identity_of<OP>(OP);
+  for (int j = begin + lane; j < end; j += 32) acc = fold<OP>(OP, acc, __ldg(p + __ldg(pm + j)));
 #pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      op[i] = lane_op<OP>(la, l0 + i);
-      acc[i] = identity_of<OP>(op[i]);
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = fold<OP>(OP, acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  }
+  if (lane == 0) out[r] = acc;
+}
+
+// Folds a batch's first n loaded partials into accumulators 0 .. n-1.
+// (Every loop here has a fixed trip count, so the arrays stay in
+// registers.)
+template <int OP>
+__device__ __forceinline__ void fold_entries(float (&acc)[32], const float (&x)[32], int n) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = i < n ? fold<OP>(OP, acc[i], x[i]) : acc[i];
+}
+
+// segment_combine's xor tree as seen from its thread 0, every fold kept:
+// acc[q] = fold(acc[q], acc[q + off]) for q < off, off = 16 ... 1.
+template <int OP>
+__device__ __forceinline__ float fold_tree(float (&acc)[32]) {
+#pragma unroll
+  for (int lv = 4; lv >= 0; --lv) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      if (q < (1 << lv)) acc[q] = fold<OP>(OP, acc[q], acc[q + (1 << lv)]);
     }
-    for (int j = begin + lane; j < end; j += 32) {
-      float v[NL];
-      gather<NL>(p + static_cast<long long>(__ldg(pm + j)) * la.stride + l0, v);
+  }
+  return acc[0];
+}
+
+// A block of the lane combine stages kRows destination rows of a pass's T
+// lanes: 8 warps of kSets rows at once, each walking kWarpSets sets.
+template <int T>
+struct CombineTile {
+  static constexpr int kSets = 32 / T;
+  static constexpr int kRows = kSets * kCombineWarps > 32 ? kSets * kCombineWarps : 32;
+  static constexpr int kWarpSets = kRows / (kSets * kCombineWarps);
+};
+
+// The lane combine (see the source note).  T threads own a row, a lane
+// each; OP is every lane's combine where the launch has one arm, else
+// kPerLane.  Lanes go in passes of T; per pass a block folds its kRows
+// rows into shared memory, then writes each lane's run of them.
+template <int OP, int T>
+__global__ void __launch_bounds__(kCombineWarps * 32)
+segment_combine_lanes_kernel(const __grid_constant__ CombineArgs a,
+                             const __grid_constant__ LaneArgs la,
+                             const float* __restrict__ part, float* __restrict__ out) {
+  using Tile = CombineTile<T>;
+  __shared__ float staged[T][Tile::kRows + 1];  // +1: no bank conflicts
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane % T;  // the thread's lane of a pass
+  const int g = lane / T;    // its row of a set
+  const unsigned group = T == 32 ? 0xffffffffu : ((1u << T) - 1u) << (g * T);
+  const int tile0 = blockIdx.x * Tile::kRows;
+  const int n_rows = min(Tile::kRows, a.dst0[a.n] - tile0);
+  for (int l0 = 0; l0 < la.n_lanes; l0 += T) {
+    const int l = l0 + sub;
+    const bool live = l < la.n_lanes;
+    // a padding lane (an id outside the arms) is written as 0
+    const int op = live ? lane_op<kPerLane>(la, l) : kPadLane;
+#pragma unroll 1
+    for (int q = 0; q < Tile::kWarpSets; ++q) {
+      const int rr = (q * kCombineWarps + warp) * Tile::kSets + g;
+      float res = 0.0f;
+      if (rr < n_rows) {  // the same for the whole thread group
+        const int r = tile0 + rr;
+        const int s = shard_of(a.dst0, a.n, r);
+        const int32_t* rp = a.row_ptr[s] + (r - a.dst0[s]);
+        const int32_t* pm = a.perm[s];
+        // lane l of the shard's partial e: part[p0 + e * stride] (the table
+        // is under 2^31 floats: the wrapper checks)
+        const unsigned p0 = static_cast<unsigned>(a.ell0[s] * la.stride + l);
+        const unsigned stride = static_cast<unsigned>(la.stride);
+        const int begin = __ldg(rp);
+        const int end = __ldg(rp + 1);
+        float acc[32];
 #pragma unroll
-      for (int i = 0; i < NL; ++i) acc[i] = fold<OP>(op[i], acc[i], v[i]);
+        for (int i = 0; i < 32; ++i) acc[i] = identity_of<OP>(op);
+        for (int j0 = begin; j0 < end; j0 += 32) {
+          const int n = min(32, end - j0);
+          // Every load of the batch is issued before its first fold, and
+          // none is predicated (a predicated load's register is moved out
+          // at once, which waits for it): an entry past the row reads perm
+          // and the table at their start, which stay in L1.
+          int pv[32 / T];  // perm[j0 .. j0 + 31], T to a load
+#pragma unroll
+          for (int v = 0; v < 32 / T; ++v) {
+            const int j = j0 + v * T + sub;
+            pv[v] = __ldg(pm + (j < end ? j : 0));
+          }
+          float x[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int e = T == 1 ? pv[i] : __shfl_sync(group, pv[i / T], i % T, T);
+            x[i] = __ldg(part + (live && i < n ? p0 + static_cast<unsigned>(e) * stride : 0u));
+          }
+          if constexpr (OP != kPerLane) {
+            fold_entries<OP>(acc, x, n);
+          } else if (op == kSum) {  // the thread's arm: a branch a thread,
+            fold_entries<kSum>(acc, x, n);  // after the group's shuffles
+          } else if (op == kMin) {
+            fold_entries<kMin>(acc, x, n);
+          } else if (op == kMax) {
+            fold_entries<kMax>(acc, x, n);
+          }
+        }
+        if constexpr (OP != kPerLane) {
+          res = fold_tree<OP>(acc);
+        } else if (op == kSum) {
+          res = fold_tree<kSum>(acc);
+        } else if (op == kMin) {
+          res = fold_tree<kMin>(acc);
+        } else if (op == kMax) {
+          res = fold_tree<kMax>(acc);
+        }
+        res = op < 0 ? 0.0f : res;
+      }
+      staged[sub][rr] = res;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) {
-        acc[i] = fold<OP>(op[i], acc[i], __shfl_xor_sync(0xffffffffu, acc[i], off));
+    __syncthreads();
+    const int n_lanes = min(T, la.n_lanes - l0);
+    for (int i = threadIdx.x; i < n_lanes * Tile::kRows; i += kCombineWarps * 32) {
+      const int rr = i % Tile::kRows;
+      if (rr < n_rows) {
+        out[static_cast<long long>(l0 + i / Tile::kRows) * la.out_stride + tile0 + rr] =
+            staged[i / Tile::kRows][rr];
       }
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) {
-        if (l0 + i < n_lanes) out[(l0 + i) * la.out_stride + r] = op[i] < 0 ? 0.0f : acc[i];
-      }
-    }
+    __syncthreads();  // the block is done with the rows before the next pass
   }
 }
 
@@ -725,34 +1000,90 @@ void launch_scalar(const PartialsArgs& a, const LaneArgs& la, const float* x,
       a, la, x, o, k, tr, window);
 }
 
-template <typename IdxT, int OP, bool MASKED>
-void launch_partials(const PartialsArgs& a, const LaneArgs& la, const float* x,
-                     float* o, int k, int tr, int window, int lanes_per_row,
-                     cudaStream_t stream) {
-  if (lanes_per_row > 0) {
-    const long long per_block = static_cast<long long>(kWarpsPerBlock) * (32 / lanes_per_row);
-    const dim3 grid(static_cast<unsigned>((a.row0[a.n] + per_block - 1) / per_block));
-    ell_partials_vec_kernel<IdxT, OP, MASKED><<<grid, dim3(kWarpsPerBlock * 32), 0, stream>>>(
-        a, x, o, k, tr, window, lanes_per_row);
-  } else {
-    launch_scalar<IdxT, OP, 1, MASKED>(a, la, x, o, k, tr, window, stream);
+// The masked kernel's grid: a warp for each set of 32 rows of each shard,
+// the shards' sets interleaved.
+template <typename IdxT, int P, int OP>
+void launch_masked_rows(const PartialsArgs& a, const float* x, float* o, int k, int tr,
+                        int window, cudaStream_t stream) {
+  long long longest = 0;
+  for (int s = 0; s < a.n; ++s) {
+    longest = a.row0[s + 1] - a.row0[s] > longest ? a.row0[s + 1] - a.row0[s] : longest;
+  }
+  const long long warps = (longest + 31) / 32 * a.n;
+  const dim3 grid(static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  ell_partials_masked_kernel<IdxT, P, OP><<<grid, dim3(kWarpsPerBlock * 32), 0, stream>>>(
+      a, x, o, k, tr, window);
+}
+
+template <typename IdxT, int OP>
+cudaError_t launch_masked(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                          float* o, int k, int tr, int window, int lanes_per_row,
+                          cudaStream_t stream) {
+  switch (lanes_per_row) {
+    case 0:
+      launch_scalar<IdxT, OP, 1, true>(a, la, x, o, k, tr, window, stream);
+      return cudaSuccess;
+    case 1:
+      launch_masked_rows<IdxT, 1, OP>(a, x, o, k, tr, window, stream);
+      return cudaSuccess;
+    case 2:
+      launch_masked_rows<IdxT, 2, OP>(a, x, o, k, tr, window, stream);
+      return cudaSuccess;
+    case 4:
+      launch_masked_rows<IdxT, 4, OP>(a, x, o, k, tr, window, stream);
+      return cudaSuccess;
+    case 8:
+      launch_masked_rows<IdxT, 8, OP>(a, x, o, k, tr, window, stream);
+      return cudaSuccess;
+    default: {  // K > 128: a row over P threads
+      const long long per_block = static_cast<long long>(kWarpsPerBlock) * (32 / lanes_per_row);
+      const dim3 grid(static_cast<unsigned>((a.row0[a.n] + per_block - 1) / per_block));
+      ell_partials_vec_kernel<IdxT, OP, true><<<grid, dim3(kWarpsPerBlock * 32), 0, stream>>>(
+          a, x, o, k, tr, window, lanes_per_row);
+      return cudaSuccess;
+    }
   }
 }
 
+template <typename IdxT, int OP>
+cudaError_t launch_sentinel(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                            float* o, int k, int tr, int window, int lanes_per_row,
+                            cudaStream_t stream) {
+  if (lanes_per_row > 0) {
+    const long long per_block = static_cast<long long>(kWarpsPerBlock) * (32 / lanes_per_row);
+    const dim3 grid(static_cast<unsigned>((a.row0[a.n] + per_block - 1) / per_block));
+    ell_partials_vec_kernel<IdxT, OP, false><<<grid, dim3(kWarpsPerBlock * 32), 0, stream>>>(
+        a, x, o, k, tr, window, lanes_per_row);
+  } else {
+    launch_scalar<IdxT, OP, 1, false>(a, la, x, o, k, tr, window, stream);
+  }
+  return cudaSuccess;
+}
+
+template <typename IdxT, bool MASKED, int OP>
+cudaError_t launch_single(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                          float* o, int k, int tr, int window, int lanes_per_row,
+                          cudaStream_t stream) {
+  if constexpr (MASKED) {
+    return launch_masked<IdxT, OP>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+  } else {
+    return launch_sentinel<IdxT, OP>(a, la, x, o, k, tr, window, lanes_per_row, stream);
+  }
+}
+
+// The single-lane partials, masked or sentinel, with the combine at
+// compile time.
 template <typename IdxT, bool MASKED>
-void launch_single(const PartialsArgs& a, const LaneArgs& la, const float* x,
-                   float* o, int k, int tr, int window, int lanes_per_row,
-                   int combine, cudaStream_t stream) {
+cudaError_t launch_single(const PartialsArgs& a, const LaneArgs& la, const float* x,
+                          float* o, int k, int tr, int window, int lanes_per_row,
+                          int combine, cudaStream_t stream) {
   switch (combine) {
     case kSum:
-      launch_partials<IdxT, kSum, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
-      break;
+      return launch_single<IdxT, MASKED, kSum>(a, la, x, o, k, tr, window, lanes_per_row, stream);
     case kMin:
-      launch_partials<IdxT, kMin, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
-      break;
+      return launch_single<IdxT, MASKED, kMin>(a, la, x, o, k, tr, window, lanes_per_row, stream);
     default:
-      launch_partials<IdxT, kMax, MASKED>(a, la, x, o, k, tr, window, lanes_per_row, stream);
-      break;
+      return launch_single<IdxT, MASKED, kMax>(a, la, x, o, k, tr, window, lanes_per_row, stream);
   }
 }
 
@@ -872,6 +1203,35 @@ cudaError_t launch_lanes(const PartialsArgs& a, const LaneArgs& la, const float*
   return cudaSuccess;
 }
 
+template <int OP, int T>
+void launch_combine_tile(const CombineArgs& a, const LaneArgs& la, const float* p, float* o,
+                         cudaStream_t stream) {
+  constexpr int kRows = CombineTile<T>::kRows;
+  const dim3 grid((a.dst0[a.n] + kRows - 1) / kRows);
+  segment_combine_lanes_kernel<OP, T><<<grid, dim3(kCombineWarps * 32), 0, stream>>>(a, la, p,
+                                                                                    o);
+}
+
+// Threads a destination row of the lane combine: the lanes, rounded up to
+// a power of two, at most 32 (wider launches go in passes of 32).
+template <int OP>
+void launch_combine_lanes(const CombineArgs& a, const LaneArgs& la, const float* p, float* o,
+                          cudaStream_t stream) {
+  if (la.n_lanes == 1) {
+    launch_combine_tile<OP, 1>(a, la, p, o, stream);
+  } else if (la.n_lanes == 2) {
+    launch_combine_tile<OP, 2>(a, la, p, o, stream);
+  } else if (la.n_lanes <= 4) {
+    launch_combine_tile<OP, 4>(a, la, p, o, stream);
+  } else if (la.n_lanes <= 8) {
+    launch_combine_tile<OP, 8>(a, la, p, o, stream);
+  } else if (la.n_lanes <= 16) {
+    launch_combine_tile<OP, 16>(a, la, p, o, stream);
+  } else {
+    launch_combine_tile<OP, 32>(a, la, p, o, stream);
+  }
+}
+
 // Fills the shard table; returns false on a bad shape.
 bool fill_partials(PartialsArgs* a, const void* const* idx,
                    const void* const* mask, const void* const* tile_window,
@@ -946,7 +1306,7 @@ bool fill_lanes(LaneArgs* la, const void* cid, const int* arm_ops, int n_arms,
 }  // namespace
 
 // idx/mask/tile_window: n_shards device pointers each; n_ell: rows of each.
-// vec != 0 takes the 16-slots-a-thread path; the caller checks K % 16 == 0
+// vec != 0 takes the vector path; the caller checks K % 16 == 0
 // and 16 B alignment of every idx and mask plane.
 extern "C" int ell_partials_masked(const void* const* idx,
                                    const void* const* mask,
@@ -965,12 +1325,11 @@ extern "C" int ell_partials_masked(const void* const* idx,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const int p = lanes_per_row(k, vec);
-  if (idx_bytes == 2) {
-    launch_single<int16_t, true>(a, la, x, o, k, tr, window, p, combine, s);
-  } else {
-    launch_single<int32_t, true>(a, la, x, o, k, tr, window, p, combine, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      idx_bytes == 2 ? launch_single<int16_t, true>(a, la, x, o, k, tr, window, p, combine, s)
+                     : launch_single<int32_t, true>(a, la, x, o, k, tr, window, p, combine, s);
+  const cudaError_t last = cudaGetLastError();  // read, so none is left behind
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // As ell_partials_masked with no mask plane: window is the extended window
@@ -993,12 +1352,11 @@ extern "C" int ell_partials_sentinel(const void* const* idx,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const int p = lanes_per_row(k, vec);
-  if (idx_bytes == 2) {
-    launch_single<int16_t, false>(a, la, x, o, k, tr, window, p, combine, s);
-  } else {
-    launch_single<int32_t, false>(a, la, x, o, k, tr, window, p, combine, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      idx_bytes == 2 ? launch_single<int16_t, false>(a, la, x, o, k, tr, window, p, combine, s)
+                     : launch_single<int32_t, false>(a, la, x, o, k, tr, window, p, combine, s);
+  const cudaError_t last = cudaGetLastError();  // read, so none is left behind
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // msgs: the lane-minor message table [n_pad, lane_stride]; lanes
@@ -1054,7 +1412,6 @@ extern "C" int segment_combine(const void* part, const void* const* perm,
       !fill_combine(&a, perm, row_ptr, n_ell, rows, n_shards)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const LaneArgs la = single_lane();
   constexpr int kRowsPerBlock = kCombineThreads / 32;
   const dim3 grid((a.dst0[n_shards] + kRowsPerBlock - 1) / kRowsPerBlock);
   const dim3 block(kCombineThreads);
@@ -1063,54 +1420,55 @@ extern "C" int segment_combine(const void* part, const void* const* perm,
   auto* o = static_cast<float*>(out);
   switch (combine) {
     case kSum:
-      segment_combine_kernel<kSum, 1><<<grid, block, 0, s>>>(a, la, p, o);
+      segment_combine_kernel<kSum><<<grid, block, 0, s>>>(a, p, o);
       break;
     case kMin:
-      segment_combine_kernel<kMin, 1><<<grid, block, 0, s>>>(a, la, p, o);
+      segment_combine_kernel<kMin><<<grid, block, 0, s>>>(a, p, o);
       break;
     default:
-      segment_combine_kernel<kMax, 1><<<grid, block, 0, s>>>(a, la, p, o);
+      segment_combine_kernel<kMax><<<grid, block, 0, s>>>(a, p, o);
       break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // part: lane-minor partials [sum n_ell, part_stride] (lanes 0..n_lanes-1
-// read; part_stride a multiple of nl, the table 16 B aligned for nl > 1);
-// out: [n_lanes, sum rows]; cid/arm_ops as for ell_partials_lanes.
+// read, part_stride >= n_lanes, under 2^31 floats in all); out: [n_lanes,
+// sum rows]; cid/arm_ops as for ell_partials_lanes.
 extern "C" int segment_combine_lanes(const void* part, int part_stride,
                                      const void* const* perm,
                                      const void* const* row_ptr,
                                      const long long* n_ell, const int* rows,
-                                     int n_shards, int n_lanes, int nl,
+                                     int n_shards, int n_lanes,
                                      const void* cid, const int* arm_ops,
                                      int n_arms, void* out, void* stream) {
   CombineArgs a;
   LaneArgs la;
-  if (n_shards <= 0 || n_shards > kMaxBatch || (nl != 1 && nl != 4 && nl != 8) ||
-      part_stride < n_lanes || part_stride % nl ||
-      (nl > 1 && reinterpret_cast<uintptr_t>(part) % 16) ||
+  long long n_part = 0;
+  for (int s = 0; s < n_shards && s < kMaxBatch; ++s) n_part += n_ell[s];
+  if (n_shards <= 0 || n_shards > kMaxBatch || part_stride < n_lanes ||
+      n_part * part_stride >= (1LL << 31) ||  // 32-bit offsets
       !fill_combine(&a, perm, row_ptr, n_ell, rows, n_shards) ||
       !fill_lanes(&la, cid, arm_ops, n_arms, n_lanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   la.stride = part_stride;
   la.out_stride = a.dst0[n_shards];
-  constexpr int kRowsPerBlock = kCombineThreads / 32;
-  const dim3 grid((a.dst0[n_shards] + kRowsPerBlock - 1) / kRowsPerBlock);
-  const dim3 block(kCombineThreads);
-  auto s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const float*>(part);
   auto* o = static_cast<float*>(out);
-  switch (nl) {
-    case 1:
-      segment_combine_kernel<kPerLane, 1><<<grid, block, 0, s>>>(a, la, p, o);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (la.n_arms > 1 ? kPerLane : la.arm_op[0]) {
+    case kSum:
+      launch_combine_lanes<kSum>(a, la, p, o, s);
       break;
-    case 4:
-      segment_combine_kernel<kPerLane, 4><<<grid, block, 0, s>>>(a, la, p, o);
+    case kMin:
+      launch_combine_lanes<kMin>(a, la, p, o, s);
+      break;
+    case kMax:
+      launch_combine_lanes<kMax>(a, la, p, o, s);
       break;
     default:
-      segment_combine_kernel<kPerLane, 8><<<grid, block, 0, s>>>(a, la, p, o);
+      launch_combine_lanes<kPerLane>(a, la, p, o, s);
       break;
   }
   return static_cast<int>(cudaGetLastError());

@@ -299,9 +299,9 @@ _CUDA_INVALID_CONFIGURATION = 9  # ell_partials_lanes: the stride does not fit
 
 
 def lane_chunk(n_lanes: int) -> int:
-    """``NL``, 1, 4 or 8: the lane stride of the lane-minor tables is a
-    multiple of it, and the lane combine and the lane partials' warp-per-row
-    path hold that many lanes a thread at once."""
+    """``NL``, 1, 4 or 8: the lane stride of the lane-minor message and
+    partial tables is a multiple of it, and the lane partials' warp-per-row
+    path holds that many lanes a thread at once."""
     return 1 if n_lanes == 1 else 4 if n_lanes <= 4 else 8
 
 
@@ -438,18 +438,12 @@ def _lane_minor(part: torch.Tensor):
     """``part`` ``[L, n_ell]`` as a lane-minor table the lane combine reads:
     ``(table, lane stride)``.  The lane kernels' own output is one already;
     any other layout is copied."""
-    n_lanes, n_ell = part.shape
-    nl = lane_chunk(n_lanes)
+    n_lanes = part.shape[0]
     if n_lanes == 1 and part.stride(1) == 1:
         return part, 1
-    stride = part.stride(1)
-    if (part.stride(0) == 1 and stride >= n_lanes and stride % nl == 0
-            and part.data_ptr() % 16 == 0):
-        return part, stride
-    stride = -(-n_lanes // nl) * nl
-    table = torch.zeros((n_ell, stride), dtype=part.dtype, device=part.device)
-    table[:, :n_lanes] = part.t()
-    return table, stride
+    if part.stride(0) == 1 and part.stride(1) >= n_lanes:
+        return part, part.stride(1)
+    return part.t().contiguous(), n_lanes
 
 
 def _check_ell(idx, mask, tile_window, msgs, tr) -> int:
@@ -586,16 +580,15 @@ def segment_combine_lanes(part: torch.Tensor, perm: Tensors, row_ptr: Tensors,
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]
     with torch.cuda.device(part.device):
         rc = fn(table.data_ptr(), stride, _ptrs(perm), _ptrs(row_ptr),
                 (ctypes.c_longlong * len(perm))(*[pm.numel() for pm in perm]),
                 (ctypes.c_int * len(rows))(*rows), len(perm), n_lanes,
-                lane_chunk(n_lanes), combine_ids.data_ptr(),
-                _arm_ops(combines), len(combines), out.data_ptr(),
-                _stream(part.device))
+                combine_ids.data_ptr(), _arm_ops(combines), len(combines),
+                out.data_ptr(), _stream(part.device))
     if rc != 0:
         raise RuntimeError(f"segment_combine_lanes launch failed: CUDA error {rc}")
     segment_combine_lanes.launches += 1

@@ -10,6 +10,7 @@ reduction order over K differs) and rtol=1e-5, atol=1e-9 for PageRank
 values after 15 iterations.
 """
 
+import functools
 import time
 
 import numpy as np
@@ -286,6 +287,134 @@ def test_ragged_bitwise_multi_and_padding_zero(dev, counts, combines):
         if c is not None:
             assert torch.equal(part[l], K.ell_partials_masked(
                 *planes, ctx["msgs"].rows[l], window=512, tr=8, combine=c))
+
+
+def _bits(t):
+    """A float tensor's bits, so NaNs compare too."""
+    return t.contiguous().view(torch.int32)
+
+
+def _combine_case(dev, n_lanes, seed=13):
+    """Lane-minor partials over a star hub (one destination row of 79
+    partials, 9,999 empty rows) and a 20-shard R-MAT batch, with -0.0,
+    +-inf and NaN among them: (part, perm, row_ptr) per case."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for graph, n_shards in (("star", 1), ("rmat", 20)):
+        _, ds = _lane_shards(dev, 1024, 128, 8, n_shards=n_shards, graph=graph)
+        n_ell = sum(d.n_ell for d in ds)
+        stride = -(-n_lanes // K.lane_chunk(n_lanes)) * K.lane_chunk(n_lanes)
+        x = rng.standard_normal((n_ell, stride)).astype(np.float32)
+        pick = rng.random(x.shape) < 0.02
+        x[pick] = rng.choice(np.float32([-0.0, np.inf, -np.inf, np.nan]), int(pick.sum()))
+        part = torch.from_numpy(x).to(dev).t()[:n_lanes]  # the lane kernels' layout
+        cases.append((part, [d.perm for d in ds], [d.row_ptr for d in ds]))
+    return cases
+
+
+@pytest.mark.parametrize("n_lanes", [1, 3, 16, 31, 32, 33, 64, 100])
+def test_lane_combine_bitwise_per_lane_segment_combine(dev, n_lanes):
+    """Lane l of the lane combine is bitwise segment_combine on lane l, with
+    one arm (each combine) and ragged (three arms cycling, the last lane
+    padding, written as 0); a star hub's row folds 79 partials (over a
+    batch of 32) and its other rows are empty; 20 shards in one launch.
+    Against the plain version too (min/max bitwise)."""
+    arms = ("min", "sum", "max")
+    ids = [l % 3 for l in range(n_lanes - 1)] + [len(arms) if n_lanes > 1 else 0]
+    cids = torch.tensor(ids, dtype=torch.int32, device=dev)
+    lane_c = [arms[i] if i < len(arms) else None for i in ids]
+    for part, perm, ptr in _combine_case(dev, n_lanes):
+        for c in COMBINES:
+            before = K.segment_combine_lanes.launches
+            acc = K.segment_combine_lanes(part, perm, ptr, (c,))
+            assert K.segment_combine_lanes.launches == before + 1
+            want = torch.stack([K.segment_combine(part[l].contiguous(), perm, ptr, c)
+                                for l in range(n_lanes)])
+            assert torch.equal(_bits(acc), _bits(want))
+            # a dense [L, n_ell] copy goes through the same kernel
+            assert torch.equal(_bits(K.segment_combine_lanes(part.contiguous(), perm, ptr,
+                                                             (c,))), _bits(want))
+        acc = K.segment_combine_lanes(part, perm, ptr, arms, cids)
+        plain = K.segment_combine_lanes_plain(part, perm, ptr, arms, cids)
+        for l, c in enumerate(lane_c):
+            if c is None:
+                assert not acc[l].any()
+                continue
+            want = K.segment_combine(part[l].contiguous(), perm, ptr, c)
+            assert torch.equal(_bits(acc[l]), _bits(want))
+            # the plain min/max keep a NaN that fminf/fmaxf pass over, and
+            # sums of standard normals need an absolute slack
+            fin = torch.isfinite(want) & torch.isfinite(plain[l])
+            assert _close(acc[l][fin].cpu(), plain[l][fin].cpu(), c, atol=1e-4)
+
+
+#: (window, K): K = 16, 32 and 128 take the masked kernel's thread a row,
+#: 512 and 1024 its vector body; W = 65536 takes int32 indices
+MASKED_CASES = [(w, k) for k in (16, 32, 128, 512, 1024) for w in (1024, 1 << 16)]
+
+
+@functools.lru_cache(maxsize=2)
+def _masked_graphs(k):
+    """A 4-shard R-MAT graph with tens of thousands of 32-row sets a shard
+    (more warps than the card holds at once; fewer edges at larger K, so
+    the mask plane stays under about 100 MB), and a star hub that fills
+    whole rows: (graph, shards) pairs."""
+    ne = 1 << 22 if k <= 32 else 1 << 20 if k <= 128 else 1 << 18
+    out = []
+    for g, n in ((rmat_graph(ne >> 4, ne, seed=31), 4), (star_graph(20_000), 1)):
+        out.append((g, preprocess(g, num_shards=n)[1]))
+    return out
+
+
+@pytest.mark.parametrize("window,k", MASKED_CASES)
+@pytest.mark.parametrize("combine", COMBINES)
+def test_masked_partials_bitwise_lanes_sentinel_per_shard(dev, window, k, combine):
+    """The masked partials (a thread a row at K <= 128, the vector body
+    beyond) on a 4-shard R-MAT batch and a star hub: bitwise the lane
+    kernel's lane rows, the sentinel kernel and one launch per shard; the
+    plain version's values (min/max bitwise)."""
+    for g, shards in _masked_graphs(k):
+        ds = [ell_to_device(csr_to_ell(s, g.num_vertices, window=window, k=k, tr=8), dev)
+              for s in shards]
+        assert ds[0].idx.dtype == (torch.int16 if window <= 32767 else torch.int32)
+        msgs = _lane_msgs(dev, 3, ds[0].num_windows * window, combine)
+        planes = ([d.idx for d in ds], [d.mask for d in ds], [d.tile_window for d in ds])
+        kw = dict(window=window, tr=8, combine=combine)
+        part = K.ell_partials_masked(*planes, msgs[0], **kw)
+        per_shard = torch.cat([K.ell_partials_masked(d.idx, d.mask, d.tile_window,
+                                                     msgs[0], **kw) for d in ds])
+        assert torch.equal(part, per_shard)
+        lanes = K.ell_partials_lanes(*planes, msgs, **kw)
+        for l in range(3):
+            assert torch.equal(lanes[l], K.ell_partials_masked(*planes, msgs[l], **kw))
+        table = ops.extend_windows(msgs[0], window, combine)
+        sentinel = K.ell_partials_sentinel(
+            [d.sentinel_idx() for d in ds], planes[2], table,
+            window=window + ops.SENTINEL_PAD, tr=8, combine=combine)
+        assert torch.equal(part, sentinel)
+        plain = K.ell_partials_masked_plain(*planes, msgs[0], **kw)
+        assert _close(part.cpu(), plain.cpu(), combine)
+
+
+@pytest.mark.parametrize("combine", COMBINES)
+def test_masked_partials_64_shards_one_launch(dev, combine):
+    """64 shards (the most a launch takes) in one masked launch: bitwise
+    one launch per shard, and the update bitwise too."""
+    g = rmat_graph(40_000, 600_000, seed=17)
+    _, shards = preprocess(g, num_shards=64)
+    ds = [ell_to_device(csr_to_ell(s, g.num_vertices, window=1024, k=32, tr=8), dev)
+          for s in shards]
+    x = _lane_msgs(dev, 1, ds[0].num_windows * 1024, combine)[0]
+    kw = dict(window=1024, tr=8, combine=combine)
+    before = K.ell_partials_masked.launches
+    part = K.ell_partials_masked([d.idx for d in ds], [d.mask for d in ds],
+                                 [d.tile_window for d in ds], x, **kw)
+    assert K.ell_partials_masked.launches == before + 1
+    single = torch.cat([K.ell_partials_masked(d.idx, d.mask, d.tile_window, x, **kw)
+                        for d in ds])
+    assert torch.equal(part, single)
+    assert torch.equal(ops.ell_update_batched(ds, x, combine),
+                       torch.cat([ops.ell_update(d, x, combine) for d in ds]))
 
 
 def test_service_on_the_card_ragged_multi_solo(dev, tmp_path):

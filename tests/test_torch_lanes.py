@@ -297,12 +297,12 @@ def test_lane_minor_table_for_the_lane_combine():
     assert got is view and stride == 8
     dense = view.contiguous()
     got, stride = K._lane_minor(dense)
-    assert stride == 8 and got.shape == (10, 8)
-    assert torch.equal(got[:, :5], table[:, :5]) and not got[:, 5:].any()
+    assert stride == 5 and got.shape == (10, 5)
+    assert torch.equal(got, table[:, :5])
     one = torch.arange(6, dtype=torch.float32).view(1, 6)
     assert K._lane_minor(one) == (one, 1)
     got, stride = K._lane_minor(torch.ones(3, 7))
-    assert stride == 4 and got.shape == (7, 4) and not got[:, 3].any()
+    assert stride == 3 and got.shape == (7, 3) and got.is_contiguous()
 
 
 # ------------------------------------------------ the lane kernel's fold order
@@ -366,6 +366,57 @@ def _lane_row_fold(vals, mask, combine):
     return acc[0]
 
 
+def _masked_item_fold(vals, mask, combine):
+    """The masked kernel: an item for each accumulator p with a set slot,
+    each on its own thread, folding units p, p + P, ... that hold a set
+    slot in slot order from the identity, an unset slot of such a unit
+    as the identity; then the row's thread folds the items' accumulators
+    in the tree, less its folds with an accumulator that holds no item (an
+    empty row is the identity)."""
+    k, p, fold = len(vals), _threads_a_row(len(vals)), _FOLD[combine]
+    units = k // 16
+    items = [q for q in range(p)
+             if any(mask[16 * u:16 * u + 16].any() for u in range(q, units, p))]
+    accs = {}
+    for q in items:
+        acc = _IDENTITY[combine]
+        for u in range(q, units, p):
+            if mask[16 * u:16 * u + 16].any():
+                for s in range(16 * u, 16 * u + 16):
+                    acc = fold(acc, vals[s] if mask[s] else _IDENTITY[combine])
+        accs[q] = acc
+    if items == [0]:  # accumulator 0 alone: no fold of the tree is left
+        return accs[0]
+    acc = [accs.get(q, _IDENTITY[combine]) for q in range(p)]
+    held = [q in accs for q in range(p)]
+    off = p // 2
+    while off:
+        for t in range(off):
+            if held[t + off]:
+                acc[t] = fold(acc[t], acc[t + off])
+            held[t] = held[t] or held[t + off]
+        off //= 2
+    return acc[0]
+
+
+@pytest.mark.parametrize("k,rows", [(16, 200), (32, 200), (128, 90), (1024, 8)])
+@pytest.mark.parametrize("combine", COMBINES)
+def test_masked_kernel_fold_order_is_the_single_lane_order(k, rows, combine):
+    """The masked kernel's order (one thread an item, the identity folded
+    for an item's unset slots, then the tree without its folds of
+    accumulators that hold no item) gives the single-lane order's bits, on
+    the rows of the lane kernel's test; a plain slot-order fold does not,
+    so the check can fail."""
+    rng = np.random.default_rng(k + 1)
+    special = np.float32([-0.0, 0.0, np.inf, -np.inf, np.nan])
+    differs = 0
+    with np.errstate(invalid="ignore", over="ignore"):  # inf - inf, NaN
+        for r in range(rows):
+            differs += _check_fold_order(rng, k, r, special, combine, _masked_item_fold)
+    if combine == "sum" and k > 16:
+        assert differs > 0
+
+
 @pytest.mark.parametrize("k,rows", [(16, 200), (32, 200), (128, 90), (1024, 8)])
 @pytest.mark.parametrize("combine", COMBINES)
 def test_lane_kernel_fold_order_is_the_single_lane_order(k, rows, combine):
@@ -384,9 +435,9 @@ def test_lane_kernel_fold_order_is_the_single_lane_order(k, rows, combine):
         assert differs > 0
 
 
-def _check_fold_order(rng, k, r, special, combine):
-    """One row: asserts the two kernels' bits agree; returns whether a
-    plain slot-order fold gives other bits."""
+def _check_fold_order(rng, k, r, special, combine, model=_lane_row_fold):
+    """One row: asserts ``model``'s bits are the single-lane order's;
+    returns whether a plain slot-order fold gives other bits."""
     vals = (rng.standard_normal(k) * 10.0 ** rng.integers(-6, 7, k)).astype(np.float32)
     pick = rng.random(k) < (0.0, 0.01, 0.15)[r % 3]  # some rows all finite
     vals[pick] = rng.choice(special, int(pick.sum()))
@@ -397,7 +448,7 @@ def _check_fold_order(rng, k, r, special, combine):
     else:
         mask = rng.random(k) < rng.random()
     want = _single_lane_fold(vals, mask, combine)
-    got = _lane_row_fold(vals, mask, combine)
+    got = model(vals, mask, combine)
     assert np.float32(got).view(np.uint32) == np.float32(want).view(np.uint32), (r, got, want)
     flat = _IDENTITY[combine]
     for v in vals[mask]:

@@ -51,7 +51,7 @@ line):
             max |output| (random values over thousands of keys average to
             about 0.01, so a fixed 5e-2 would hold nothing) and within
             2^-6 x max |output|; bitwise the same on repeat; one device
-            kernel a call (a traced run, where the profiler works); and
+            operation a call (the nodes of a CUDA graph of one call); and
             timed at S=544 and S=32768 beside its bound (K and V rows of
             valid slots, q, o and the mask over 3.35 TB/s), the plain
             version and one masked SDPA call.
@@ -106,8 +106,12 @@ line):
             its bound: the work of an in-order scan that stops once every
             filter has a hit (its ids, touched 32 B sectors and flags over
             3.35 TB/s, or its 32-bit operations over 67 TOP/s, the larger);
-            and over 16 empty tables of the same sizes, where it must scan
-            every id against every filter.
+            one device operation a call (the nodes of a CUDA graph of one
+            call); over 16 empty tables of the same sizes, where it must
+            scan every id against every filter; hit and no-hit calls in
+            turn on one stream; and contains on one filter at each set
+            size beside its bound (ids, touched sectors and bytes out, or
+            its operations).
 11. trace   (diagnostic: a profiler error leaves "not measured" and does
             not fail the run) one resident PageRank run of 3 iterations and
             one resident fusion set of 32 queries (max_iters=5) under
@@ -167,11 +171,16 @@ KERNELS = {
 #: (NVIDIA H100 80GB HBM3 at 700 W), kept beside the new times: the lane
 #: partials' first design (lanes in register chunks of 8, the row walked
 #: again for each chunk); the masked partials' warp-set-and-exit design and
-#: the lane combine's warp a row in chunks of 8 lanes, as redesigned since
+#: the lane combine's warp a row in chunks of 8 lanes; the single-lane
+#: combine's warp a row; the Bloom kernel's thread an id (bits) and its
+#: three-operation "any" call, as redesigned since
 EARLIER_MS = {"ell_partials_lanes L=16": 1.0867, "ell_partials_lanes L=32": 1.9869,
               "ell_partials_ragged L=16": 1.1250, "ell_partials_ragged L=32": 2.0670,
               "ell_partials_masked": 0.1973,
-              "segment_combine_lanes L=16": 0.1253, "segment_combine_lanes L=32": 0.2334}
+              "segment_combine_lanes L=16": 0.1253, "segment_combine_lanes L=32": 0.2334,
+              "segment_combine": 0.02301, "bloom_contains any": 0.0206,
+              "bloom_contains any full scan": 0.2825,
+              f"bloom_contains n={1 << 21}": 0.0351}
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 #: H100 SXM float32 outside the tensor cores; the bound of 32-bit integer
 #: work too (its published rate is no higher), so the bound stays a least time
@@ -761,6 +770,19 @@ class Smoke:
             msg_sectors.append((tw.long()[r // tr] * window + col) // 8)
         return total + 32 * torch.unique(torch.cat(msg_sectors)).numel()
 
+    @staticmethod
+    def combine_sectors(torch, perms, ptrs, rows):
+        """Bytes segment_combine moves counted in whole 32 B sectors: each
+        distinct sector its gathers touch in the partials, and the sectors
+        of perm's valid entries, of row_ptr and of the output."""
+        ell0, gathered, total = 0, [], 0
+        for pm, rp in zip(perms, ptrs):
+            n = int(rp[-1])
+            gathered.append((pm[:n].long() + ell0) // 8)
+            total += 32 * (-(-4 * n // 32) + -(-4 * rp.numel() // 32))
+            ell0 += pm.numel()
+        return total + 32 * (torch.unique(torch.cat(gathered)).numel() + -(-4 * rows // 32))
+
     def timing(self):
         import numpy as np
         torch = self.torch
@@ -816,10 +838,22 @@ class Smoke:
             plain_ms=self.timed(lambda: K.segment_combine_plain(
                 part, perms, ptrs, "sum"), 10),
             library_ms=spread["index_add_"]["median"],
-            bytes=4 * (2 * n_valid + 2 * rows + 1))
+            bytes=4 * (2 * n_valid + 2 * rows + 1),
+            min_ms=spread["kernel"]["min"],
+            ratio_to_index_add=spread["kernel"]["median"] / spread["index_add_"]["median"],
+            sector_bound_ms=self.combine_sectors(torch, perms, ptrs, rows)
+            / HBM_BYTES_PER_S * 1e3)
         for kname, d in t.items():
             d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
         slots = sum(d.idx.numel() for d in shards)
+        lens = torch.cat([(d.row_ptr[1:] - d.row_ptr[:-1]).long() for d in shards])
+        self.report["combine_rows"] = {  # how skewed the combine's rows are
+            "longest": int(lens.max()), "row_0": int(lens[0]),
+            "rows_1_31": [int(lens[1:32].min()), int(lens[1:32].max())],
+            "share_of_rows_over_32": float((lens > 32).float().mean()),
+            "share_of_partials_in_rows_over_32": float(lens[lens > 32].sum() / lens.sum()),
+            "share_of_rows_over_128": float((lens > 128).float().mean())}
+        print(f"  combine rows: {json.dumps(self.report['combine_rows'])}")
         self.report["timing_shape"] = {
             "shards": [d.shard_id for d in shards], "n_ell": n_ell,
             "k": first.k, "rows": rows, "nnz": nnz, "valid_ell_rows": n_valid,
@@ -1248,18 +1282,13 @@ class Smoke:
                 raise AssertionError("flash_decode: an all-invalid row is not 0")
             if not all(torch.equal(out, FK.flash_decode(*x)) for _ in range(3)):
                 raise AssertionError(f"flash_decode {dt}: not bitwise the same on repeat")
-        # one device kernel a call (the splits merged in the same launch)
+        # one device operation a call (the splits merged in the same launch)
         x = synth[torch.bfloat16]
-        try:
-            trace, _ = device_trace(
-                torch, lambda: [FK.flash_decode(*x) for _ in range(10)],
-                Path(self.args.out).parent / "trace_flash_decode.json")
-            rep["kernels_per_call"] = trace["device_events"] / 10
-        except Exception as exc:  # a diagnostic: report, do not fail
-            rep["kernels_per_call"] = f"not measured: {exc!r}"
-        print(f"  device kernels a flash_decode call: {rep['kernels_per_call']}")
-        if isinstance(rep["kernels_per_call"], float) and rep["kernels_per_call"] != 1.0:
-            raise AssertionError(f"flash_decode: {rep['kernels_per_call']} kernels a call")
+        rep["kernels_per_call"] = graph_device_ops(torch, lambda: FK.flash_decode(*x))
+        print(f"  device operations a flash_decode call: {rep['kernels_per_call']}")
+        if rep["kernels_per_call"] != 1:
+            raise AssertionError(f"flash_decode: {rep['kernels_per_call']} device "
+                                 f"operations a call")
         sdpa = torch.nn.functional.scaled_dot_product_attention
         for label, (q, k, v, vd) in ((f"S={real[1].shape[1]}", real[:4]),
                                      (f"S={DECODE_LONG}", synth[torch.bfloat16])):
@@ -1454,21 +1483,51 @@ class Smoke:
                 staged.words, items, reduce_any=True, **kw), 3),
             library_ms=None, bound_ms=bound[by], bound_by=by, bytes=nbytes,
             operations=ops_n, probes=probes, ids_scanned=scanned,
-            contains_one_filter_ms=self.timed(lambda: BK.bloom_contains(
-                staged.words[0], items, num_bits=staged.num_bits[0],
-                num_hashes=staged.num_hashes[0]), 20))
+            earlier_ms=EARLIER_MS["bloom_contains any"])
+        # the bits of one filter (contains) at each set size, beside their bound
+        one = (staged.words[0], staged.num_bits[0], staged.num_hashes[0])
+        d["contains_one_filter"] = {}
+        for n, ids in sets.items():
+            dev_ids = torch.from_numpy(ids).cuda()
+            nb_, ops_, probes_ = self.bloom_bits_work(torch, *one, dev_ids)
+            bnd = {"bytes": nb_ / HBM_BYTES_PER_S * 1e3, "operations": ops_ / F32_OPS_PER_S * 1e3}
+            b_by = max(bnd, key=bnd.get)
+            d["contains_one_filter"][n] = dict(
+                ms=self.timed(lambda: BK.bloom_contains(
+                    one[0], dev_ids, num_bits=one[1], num_hashes=one[2]), 20),
+                bound_ms=bnd[b_by], bound_by=b_by, bytes=nb_, operations=ops_,
+                probes=probes_, earlier_ms=EARLIER_MS.get(f"bloom_contains n={n}"))
+        # device operations an "any" call makes (one launch, no clearing)
+        d["device_ops_per_any_call"] = graph_device_ops(
+            torch, lambda: BK.bloom_contains(staged.words, items, reduce_any=True, **kw))
+        print(f"  device operations a bloom any call: {d['device_ops_per_any_call']}")
+        if d["device_ops_per_any_call"] != 1:
+            raise AssertionError(f"bloom any: {d['device_ops_per_any_call']} device "
+                                 f"operations a call")
         # the other extreme: empty tables of the same sizes, so no filter is
         # ever hit and the scan reads every id against every filter
         empty = [torch.zeros(w.numel(), dtype=torch.int32, device=w.device)
                  for w in staged.words]
         if BK.bloom_contains(empty, items, reduce_any=True, **kw).any():
             raise AssertionError("bloom any: an empty filter reported hit")
-        e_bytes, e_ops, _, _ = self.bloom_work(torch, bops.DeviceFilters(
+        e_bytes, e_ops, e_probes, _ = self.bloom_work(torch, bops.DeviceFilters(
             empty, staged.num_bits, staged.num_hashes), items)
         d["full_scan_ms"] = self.timed(lambda: BK.bloom_contains(
             empty, items, reduce_any=True, **kw), 20)
         d["full_scan_bound_ms"] = max(e_bytes / HBM_BYTES_PER_S,
                                       e_ops / F32_OPS_PER_S) * 1e3
+        d["full_scan_earlier_ms"] = EARLIER_MS["bloom_contains any full scan"]
+        # the rate of random 32 B L2 sectors the scan and the bits reach
+        d["full_scan_probes"] = e_probes
+        d["full_scan_probes_per_s"] = e_probes / (d["full_scan_ms"] * 1e-3)
+        big = d["contains_one_filter"][nv]
+        big["probes_per_s"] = big["probes"] / (big["ms"] * 1e-3)
+        # any call after a no-hit call on the same stream: the state is clean
+        for _ in range(3):
+            if not torch.equal(BK.bloom_contains(staged.words, items, reduce_any=True, **kw),
+                               out) or BK.bloom_contains(empty, items, reduce_any=True,
+                                                         **kw).any():
+                raise AssertionError("bloom any: hit and no-hit calls in turn disagree")
         self.entry_timings["bloom_contains any"] = d
         rep["timing"] = d
         print(f"  bloom_contains any, {len(filters)} filters, n={nv}: {json.dumps(d)}")
@@ -1504,6 +1563,28 @@ class Smoke:
                 live = live[((table[pos >> 5] >> (pos & 31)) & 1) != 0]
             nbytes += 32 * torch.unique(torch.cat(sectors)).numel()
         return nbytes, 8 * scanned + 6 * probes, probes, scanned
+
+    @staticmethod
+    def bloom_bits_work(torch, words, num_bits, num_hashes, items):
+        """What the bits of one filter need on this data: each id read once
+        and its byte written once, each 32 B word sector its probes touch
+        (every id probed up to its first clear bit) once; 8 integer
+        operations to hash an id and 6 a probe.  Returns bytes, operations
+        and probes."""
+        from repro_torch.kernels.bloom.ref import hash2_u32, words_as_int64
+
+        h1, h2 = hash2_u32(items)
+        table = words_as_int64(words)
+        live = torch.arange(items.numel(), device=items.device)
+        sectors, probes = [], 0
+        for i in range(num_hashes):
+            pos = (h1[live] + i * h2[live]) & (num_bits - 1)
+            probes += pos.numel()
+            sectors.append(torch.unique(pos >> 8))
+            live = live[((table[pos >> 5] >> (pos & 31)) & 1) != 0]
+        n = items.numel()
+        return (5 * n + 32 * torch.unique(torch.cat(sectors)).numel(),
+                8 * n + 6 * probes, probes)
 
     @staticmethod
     def lane_partials_bytes(torch, idxs, masks, tws, window, tr, n_lanes):
@@ -1563,6 +1644,29 @@ def record_cache_attention(run):
     finally:
         A._attend_with_cache = inner
     return calls
+
+
+def graph_device_ops(torch, fn):
+    """Device operations (kernels, memsets, copies) one call of ``fn``
+    makes: the nodes of a CUDA graph that captures a call, after a warm-up
+    call on the capturing stream.  (A profiler trace of a few calls came
+    back empty after the process's earlier traces on the card.)"""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUDA error {rc}")
+    return int(n.value)
 
 
 def device_trace(torch, run, trace_path):

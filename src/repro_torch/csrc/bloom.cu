@@ -17,40 +17,42 @@
 //   filter comes back to the host.
 //   Bound: the bits read each id once (4 B), each touched 32 B sector of
 //   the word tables once (the smoke's 16 shard filters at 2^21 vertices:
-//   512 KB each, in the 50 MB L2) and write their bytes once, with about
-//   8 integer operations to hash an id and 6 a probe; what sets their time
-//   is the L2, where every random 4 B probe moves its own 32 B sector.  The
-//   "any" output needs far less where filters are hit: an in-order scan
-//   may stop once every filter has a hit, and until then probes only the
-//   filters still without one.  Where every filter is hit early (each
-//   shard of the smoke has some active source at every set it is given),
-//   that is a few ids, and the launch is all the time there is.
-//   Design: a thread hashes an id once.  The bits: a thread an id, which
-//   probes every filter of the launch in turn, stopping at a filter's
-//   first clear bit (the host filter's AND, short-circuited: the same
-//   result).  The TPU kernel kept a whole table in VMEM; here a table of up
-//   to a few MB stays in L2 and nothing is staged in shared memory.  The
-//   "any" output: one 64-bit word of scratch, zeroed on the stream, holds
-//   bit p once some id is known to hit filter p; each block keeps a copy
-//   in shared memory.  A warp walks the ids grid-stride, 32 at a time, and
-//   takes the filters in a turn that starts at its own index, so the
-//   warps of the first wave start on different filters.  It skips a
-//   filter whose bit it knows, reading (one lane, then a shuffle, so the
-//   warp agrees) the block's word before each filter, the global word
-//   once an iteration, and in its first iteration the global word before
-//   each filter too; it stops once every bit is set.  A hit sets the
-//   block's bit, and the warp that set it there sets the global bit: one
-//   atomicOr a filter and block.  So where every filter is hit early the
-//   grid stops within its first wave, and a scan that must read every id
-//   costs one read of the hot global word per 32 ids.  A one-block pass
-//   then writes each flag from the word.  Why not simpler: a flag byte
-//   stored by every warp that hits serialises some 10^6 stores on 16
-//   bytes in L2; reading the global word before every filter for the
-//   whole scan makes that one line's rate set the time where a filter is
-//   never hit; probing every id against every filter costs the whole
-//   scan where the answer is known after a few ids.  The OR, and so every
-//   flag, does not depend on the order the warps run in.  Ids need no
-//   padding.
+//   512 KB each) and write their bytes once, with about 8 integer
+//   operations to hash an id and 6 a probe.  What the bound leaves out
+//   sets the time: every random 4 B probe moves its own 32 B sector from
+//   L2 (about 1.9 probes an id at the smoke's 30% of bits set; 16 probes
+//   an id where a scan must test every id against 16 filters), and the
+//   bits and the scan both run at L2's rate of random sectors.  The "any"
+//   output needs far less where filters are hit: an in-order scan may stop
+//   once every filter has a hit, and until then probes only the filters
+//   still without one.
+//   Design.  The bits: a thread an id, which probes every filter of the
+//   launch in turn, stopping at a filter's first clear bit (the host
+//   filter's AND, short-circuited: the same result).  The TPU kernel kept
+//   a whole table in VMEM; an SM's 227 KB of shared memory holds less than
+//   one of the smoke's tables.  Three other forms measured no faster on
+//   the smoke's tables at 2^10 to 2^21 ids: several ids a thread probed
+//   level by level (their probes issued together), all of shared memory
+//   given to L1, and a table held in a cluster of 4 blocks' shared memory
+//   and probed through distributed shared memory (slower than L2).
+//   The "any" output: a warp walks the ids grid-stride, 32 at a time, and
+//   takes the filters in a turn that starts at its own index (the warps of
+//   the first wave start on different filters), skipping a filter whose
+//   bit it knows.  A per-stream state (a 64-bit word of hit bits and a
+//   block counter) is zero between launches.  A warp's first hit of a
+//   filter goes to its block's word in shared memory and, once a filter
+//   and block, to the state's word; warps read the block's word before
+//   each filter, the state's once an iteration (and before each filter in
+//   their first), and leave once every filter is hit.  Each block at its
+//   end counts itself in the state (after a fence); the last one writes
+//   every flag from the word and sets the state back to zero.  So a call
+//   is one launch (no clearing launch before it, no flag launch after),
+//   the OR (and so every flag) does not depend on the order the blocks
+//   run in, and two streams never share a state (the wrapper keeps one
+//   per stream).  Why not simpler: a flag byte stored by every warp that hits
+//   serialises some 10^6 stores on 16 bytes in L2; reading the state's
+//   word before every filter for the whole scan makes that one line's
+//   rate set the time where a filter is never hit.  Ids need no padding.
 //
 // The C function launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -66,13 +68,20 @@ constexpr uint32_t kAdd = 0x27D4EB2Fu;
 constexpr int kMaxFilters = 64;  // one bit each in the "any" masks
 constexpr int kMaxHashes = 16;
 constexpr int kThreads = 256;
-constexpr int kAnyBlocksPerSm = 2;  // the "any" pass's grid: 512 threads an SM
+constexpr int kAnyBlocksPerSm = 2;  // the "any" grid: 512 threads an SM
 
 struct FilterArgs {
   const uint32_t* words[kMaxFilters];
   uint32_t mask[kMaxFilters];  // num_bits - 1
   int num_hashes[kMaxFilters];
   int n;
+};
+
+// The "any" output's state, one per stream; zero between launches.
+struct AnyState {
+  unsigned long long seen;  // bit p: some id hits filter p
+  unsigned int done;        // blocks of the launch that have finished
+  unsigned int pad;
 };
 
 struct Hash {
@@ -118,29 +127,28 @@ __device__ __forceinline__ unsigned long long warp_read(const volatile unsigned 
   return __shfl_sync(0xffffffffu, v, 0);
 }
 
-// *seen |= bit p for each filter p that some id hits (and *seen was 0).
-// A warp reads *seen once an iteration (32 ids) into the block's word, and
-// the block's word before each filter (in its first iteration *seen too),
-// so after the first wave the hot global word sees one read per 32 ids,
-// and at most one atomicOr per filter and block.  Every lane of a warp
-// runs the same iterations (the bound is the warp's first id), so the
-// ballots and shuffles see all 32 lanes.
-__global__ void __launch_bounds__(kThreads)
-bloom_any_kernel(const __grid_constant__ FilterArgs f,
-                 const int32_t* __restrict__ items, long long n,
-                 unsigned long long* seen) {
-  __shared__ unsigned long long block_seen;
-  if (threadIdx.x == 0) block_seen = 0;
-  __syncthreads();
+// The scan for the "any" output: st->seen |= bit p for each filter p that
+// some id hits (see the source note).  A warp walks the ids grid-stride,
+// 32 at a time, and takes the filters in a turn that starts at its own
+// index, so the warps of the first wave start on different filters.  It
+// reads the state's word once an iteration into the block's word, the
+// block's word before each filter (in its first iteration the state's
+// too), and stops once every bit is set.  Every lane of a warp runs the
+// same iterations (the bound is the warp's first id), so the ballots and
+// shuffles see all 32 lanes.
+__device__ __forceinline__ void any_scan(const FilterArgs& f, const int32_t* __restrict__ items,
+                                         long long n, AnyState* st,
+                                         unsigned long long* block_seen) {
   const unsigned long long all = f.n == kMaxFilters ? ~0ull : (1ull << f.n) - 1;
+  volatile unsigned long long* seen = &st->seen;
   const int lane = threadIdx.x & 31;
   const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   const int first = static_cast<int>(warp % f.n);
   for (long long base = warp * 32; base < n; base += stride) {
     unsigned long long known = warp_read(seen);
-    if (lane == 0 && (known & ~*static_cast<volatile unsigned long long*>(&block_seen))) {
-      atomicOr(&block_seen, known);
+    if (lane == 0 && (known & ~*static_cast<volatile unsigned long long*>(block_seen))) {
+      atomicOr(block_seen, known);
     }
     if (known == all) return;
     const bool first_pass = base == warp * 32;
@@ -150,12 +158,12 @@ bloom_any_kernel(const __grid_constant__ FilterArgs f,
       const int p = first + k < f.n ? first + k : first + k - f.n;
       const unsigned long long bit = 1ull << p;
       if (known & bit) continue;
-      known |= warp_read(&block_seen);  // another warp of the block may have hit it
+      known |= warp_read(block_seen);  // another warp of the block may have hit it
       if (!(known & bit) && first_pass) known |= warp_read(seen);  // or of the grid
       if (known == all) return;
       if (known & bit) continue;
       if (__ballot_sync(0xffffffffu, i < n && member(f, p, h))) {
-        if (lane == 0 && !(atomicOr(&block_seen, bit) & bit)) atomicOr(seen, bit);
+        if (lane == 0 && !(atomicOr(block_seen, bit) & bit)) atomicOr(&st->seen, bit);
         known |= bit;
       }
     }
@@ -163,10 +171,36 @@ bloom_any_kernel(const __grid_constant__ FilterArgs f,
   }
 }
 
-// out[p] = bit p of *seen, for every filter.
-__global__ void bloom_any_flags_kernel(const unsigned long long* __restrict__ seen,
-                                       int n_filters, uint8_t* __restrict__ out) {
-  if (static_cast<int>(threadIdx.x) < n_filters) out[threadIdx.x] = (*seen >> threadIdx.x) & 1ull;
+// The end of an "any" launch, run by every thread of every block: the
+// block counts itself in the state once all its warps are done; the last
+// block writes each flag from the word of hit bits and zeroes the state.
+__device__ __forceinline__ void finish_any(int n_filters, uint8_t* __restrict__ out,
+                                           AnyState* st) {
+  __shared__ bool last;
+  __shared__ unsigned long long word;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's hit bits before its count
+    last = atomicAdd(&st->done, 1u) == gridDim.x - 1;
+    if (last) {
+      __threadfence();
+      word = atomicExch(&st->seen, 0ull);
+      st->done = 0;
+    }
+  }
+  __syncthreads();
+  if (last && static_cast<int>(threadIdx.x) < n_filters) out[threadIdx.x] = (word >> threadIdx.x) & 1ull;
+}
+
+__global__ void __launch_bounds__(kThreads)
+bloom_any_kernel(const __grid_constant__ FilterArgs f,
+                 const int32_t* __restrict__ items, long long n,
+                 uint8_t* __restrict__ out, AnyState* st) {
+  __shared__ unsigned long long block_seen;
+  if (threadIdx.x == 0) block_seen = 0;
+  __syncthreads();
+  any_scan(f, items, n, st, &block_seen);
+  finish_any(f.n, out, st);
 }
 
 }  // namespace
@@ -174,14 +208,15 @@ __global__ void bloom_any_flags_kernel(const unsigned long long* __restrict__ se
 // words: n_filters device pointers to uint32 tables of num_bits[f] / 32
 // words; num_bits: powers of two >= 32; num_hashes: 1..kMaxHashes.
 // items: n int32 ids on the device.  out: [n_filters, n] bytes, or with
-// any != 0 n_filters bytes and scratch: one 8-byte word.
+// any != 0 n_filters bytes and state: the stream's 16-byte "any" state,
+// zero (as every launch leaves it).
 extern "C" int bloom_contains(const void* const* words,
                               const unsigned long long* num_bits,
                               const int* num_hashes, int n_filters,
                               const void* items, long long n, int any,
-                              void* out, void* scratch, void* stream) {
+                              void* out, void* state, void* stream) {
   FilterArgs f;
-  if (n_filters <= 0 || n_filters > kMaxFilters || n <= 0) {
+  if (n_filters <= 0 || n_filters > kMaxFilters || n <= 0 || (any && state == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   f.n = n_filters;
@@ -203,19 +238,12 @@ extern "C" int bloom_contains(const void* const* words,
     bloom_bits_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(f, x, n, o);
     return static_cast<int>(cudaGetLastError());
   }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long most = static_cast<long long>(sms) * kAnyBlocksPerSm;
-  const int grid = static_cast<int>(blocks < most ? blocks : most);
-  auto* seen = static_cast<unsigned long long*>(scratch);
-  e = cudaMemsetAsync(seen, 0, sizeof(*seen), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  bloom_any_kernel<<<grid, kThreads, 0, s>>>(f, x, n, seen);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  bloom_any_flags_kernel<<<1, kMaxFilters, 0, s>>>(seen, n_filters, o);
+  bloom_any_kernel<<<static_cast<unsigned>(blocks < most ? blocks : most), kThreads, 0, s>>>(
+      f, x, n, o, static_cast<AnyState*>(state));
   return static_cast<int>(cudaGetLastError());
 }

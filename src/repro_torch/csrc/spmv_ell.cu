@@ -160,12 +160,37 @@
 // segment_combine  replaces the XLA segment_sum/min/max that follows the
 //     TPU kernel (src/repro/kernels/spmv_ell/ops.py::_segment_combine)
 //   out[r] = COMBINE over partial[perm[j]], j in [row_ptr[r], row_ptr[r+1]),
-//   starting from the identity; an empty row gets the identity.  One warp
-//   per destination row: thread t folds j = row_ptr[r] + t, + 32, ... in
-//   ascending order, then a fixed xor-shuffle tree folds the threads.  No
-//   atomics and a fixed order, so batched and per-shard launches give the
-//   same bits.  Bound: memory — the partials of the non-padding rows, perm
-//   and row_ptr read once, out written once.
+//   starting from the identity; an empty row gets the identity.  The
+//   order, which every combine keeps (the warp-per-row order): 32
+//   accumulators, accumulator t folding j = row_ptr[r] + t, + 32, ... in
+//   ascending order from the identity, then a fixed xor-shuffle tree as
+//   seen from thread 0.  No atomics and a fixed order, so batched and
+//   per-shard launches give the same bits.  Bound: memory — the partials
+//   of the non-padding rows, perm and row_ptr read once, out written once;
+//   counted in whole 32 B sectors, the sectors the gathers touch.  What the
+//   bound leaves out: the gathers are random 4 B reads of the partials
+//   (a row's partials come from different windows' ELL blocks), each
+//   moving its own 32 B sector from L2.
+//   Design: kRowThreads (G = 4) threads a row, 32 / G rows a warp, all of
+//   one shard, dealt n_warps apart (the shard's warp count, odd).  R-MAT's
+//   heavy rows are those with many low zero bits (on the smoke's batch
+//   row 0 folds 904 partials and rows 1-31 79-344), so rows dealt in runs
+//   would give a few warps most of the work; with n_warps odd a warp's
+//   rows take every residue mod 32 / G once.  The order's accumulator a
+//   lives in thread a % G of the row's group as its slot a / G, so the
+//   tree's levels 16 ... G stay in each thread and two shuffles in the
+//   group finish it: no shuffle a batch, and a batch of a row's 32 entries
+//   is 8 loads a thread, the group's 4 threads reading 4 consecutive perm
+//   entries in each.  A group walks its
+//   row two batches at a time (16 perm loads, then 16 gathers, in flight a
+//   thread).  Rows past kGroupRows partials (0.8% of the smoke's rows) are
+//   walked afterwards by the whole warp, kWarpBatches batches in flight.
+//   Designs that measured slower on the smoke's batch: a thread a row
+//   (consecutive rows, or strided with the warp taking the long rows from
+//   a cursor that deals batches across rows), and all 32 rows of a warp
+//   in lockstep rounds with a transpose tree: their per-row shuffles
+//   outnumbered the loads, and their predicated folds sat each right after
+//   its gather.
 //
 // segment_combine_lanes  replaces the vmapped segment combine of the lane
 //     update and the per-arm combine plus select of the ragged update
@@ -211,6 +236,9 @@ constexpr int kMaxBatch = 64;
 constexpr int kMaxArms = 8;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kCombineThreads = 256;
+constexpr int kRowThreads = 4;    // threads a row of the single-lane combine
+constexpr int kGroupRows = 128;   // the longest row those threads walk; longer: the warp
+constexpr int kWarpBatches = 16;  // batches of 32 the warp has in flight on a long row
 constexpr int kSlotsPerLane = 16;  // one 16 B load of mask bytes
 constexpr int kLaneRowSets = 16;   // row sets a warp of the lane kernel walks
 constexpr int kLaneStages = 2;     // sets staged at once, in shared memory
@@ -222,6 +250,8 @@ constexpr int kCombineWarps = 8;     // warps a block of the lane combine
 // Each combine's identity in device memory, for a load that stands in for
 // a slot with no message (it stays in L1).
 __device__ const float kIdentities[3] = {0.0f, INFINITY, -INFINITY};
+// The index an entry past its row loads in place of perm (it stays in L1).
+__device__ const int32_t kZeroIndex = 0;
 
 // The identity and the fold of a combine: OP when it is known at compile
 // time, else the run-time op of the lane (any op < 0 marks a padding lane,
@@ -256,6 +286,7 @@ struct CombineArgs {
   const int32_t* row_ptr[kMaxBatch];
   long long ell0[kMaxBatch];  // first partial of each shard
   int dst0[kMaxBatch + 1];    // first destination row of each shard; dst0[n] = total
+  int warp0[kMaxBatch + 1];   // segment_combine: first warp of each shard; warp0[n] = total
   int n;
 };
 
@@ -839,32 +870,6 @@ ell_partials_scalar_kernel(const __grid_constant__ PartialsArgs a, LaneArgs la,
   }
 }
 
-// The single-lane combine: a warp per destination row, thread t folding
-// j = row_ptr[r] + t, + 32, ... in ascending order, then an xor-shuffle
-// tree.  The lane combine reproduces this order (see the source note).
-template <int OP>
-__global__ void __launch_bounds__(kCombineThreads)
-segment_combine_kernel(const __grid_constant__ CombineArgs a,
-                       const float* __restrict__ part,
-                       float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (kCombineThreads / 32) + (threadIdx.x >> 5);
-  if (r >= a.dst0[a.n]) return;  // whole warp leaves together
-  const int s = shard_of(a.dst0, a.n, r);
-  const int32_t* rp = a.row_ptr[s] + (r - a.dst0[s]);
-  const int32_t* pm = a.perm[s];
-  const float* p = part + a.ell0[s];
-  const int begin = __ldg(rp);
-  const int end = __ldg(rp + 1);
-  float acc = identity_of<OP>(OP);
-  for (int j = begin + lane; j < end; j += 32) acc = fold<OP>(OP, acc, __ldg(p + __ldg(pm + j)));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc = fold<OP>(OP, acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  }
-  if (lane == 0) out[r] = acc;
-}
-
 // Folds a batch's first n loaded partials into accumulators 0 .. n-1.
 // (Every loop here has a fixed trip count, so the arrays stay in
 // registers.)
@@ -886,6 +891,102 @@ __device__ __forceinline__ float fold_tree(float (&acc)[32]) {
     }
   }
   return acc[0];
+}
+
+// The single-lane combine (see the source note).  A warp owns 32 / G
+// destination rows of one shard, n_warps apart (the shard's warp count,
+// odd), G threads a row.  The warp-per-row order's accumulator a (entries
+// row_ptr[r] + a, + 32, ...) lives in thread a % G of the row's group, as
+// its slot a / G.  A row of at most kGroupRows partials is walked by its
+// group, two batches of 32 entries at a time (16 perm loads, then 16
+// gathers, in flight a thread); then the tree as seen from thread 0: the
+// levels 16 ... G inside each thread, the levels below by shuffles within
+// the group.  Each longer row is then walked by the whole warp,
+// kWarpBatches batches of 32 at a time, and folded by the xor tree.  An
+// entry past its row reads a fixed zero in place of perm and then the
+// combine's identity, which it folds (one L1 line each): no load is
+// predicated, no address selects on a value loaded in the same batch, and
+// no fold is predicated (ptxas would put each fold right after its
+// gather, one round trip an entry).  Folding the identity changes no bit:
+// an accumulator is never -0.0, nor NaN for min/max (see
+// ell_partials_lanes).
+template <int OP>
+__global__ void __launch_bounds__(kCombineThreads)
+segment_combine_kernel(const __grid_constant__ CombineArgs a,
+                       const float* __restrict__ part, float* __restrict__ out) {
+  constexpr int G = kRowThreads;
+  constexpr int S = 32 / G;  // accumulators a thread
+  const int lane = threadIdx.x & 31;
+  const int g = lane % G;
+  const int gw = blockIdx.x * (kCombineThreads / 32) + (threadIdx.x >> 5);
+  if (gw >= a.warp0[a.n]) return;  // whole warp leaves together
+  const int s = shard_of(a.warp0, a.n, gw);
+  const int n_warps = a.warp0[s + 1] - a.warp0[s];
+  const int rows = a.dst0[s + 1] - a.dst0[s];
+  const int r = gw - a.warp0[s] + (lane / G) * n_warps;  // the group's row of the shard
+  const bool live = r < rows;
+  const int32_t* rp = a.row_ptr[s] + (live ? r : 0);
+  const int32_t* pm = a.perm[s];
+  const float* p = part + a.ell0[s];
+  const float* ident = kIdentities + OP;
+  const int begin = __ldg(rp);
+  const int stop = __ldg(rp + 1);
+  const int len = live ? stop - begin : 0;
+  const int n = len <= kGroupRows ? len : 0;  // entries the group walks
+  float acc[S];
+#pragma unroll
+  for (int m = 0; m < S; ++m) acc[m] = identity_of<OP>(OP);
+  for (int i0 = 0; i0 < n; i0 += 64) {
+    int pv[2 * S];
+#pragma unroll
+    for (int m = 0; m < 2 * S; ++m) {
+      const int i = i0 + g + G * m;
+      pv[m] = __ldg(i < n ? pm + begin + i : &kZeroIndex);
+    }
+    float x[2 * S];
+#pragma unroll
+    for (int m = 0; m < 2 * S; ++m) x[m] = __ldg((i0 + g + G * m < n ? p : ident) + pv[m]);
+#pragma unroll
+    for (int m = 0; m < 2 * S; ++m) acc[m % S] = fold<OP>(OP, acc[m % S], x[m]);
+  }
+#pragma unroll
+  for (int off = S / 2; off > 0; off >>= 1) {  // levels 16 ... G, in the thread
+#pragma unroll
+    for (int m = 0; m < off; ++m) acc[m] = fold<OP>(OP, acc[m], acc[m + off]);
+  }
+  float res = acc[0];
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {  // levels below G, in the group
+    res = fold<OP>(OP, res, __shfl_xor_sync(0xffffffffu, res, off));
+  }
+  unsigned todo = __ballot_sync(0xffffffffu, g == 0 && len > kGroupRows);
+  while (todo != 0) {
+    const int k = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int b = __shfl_sync(0xffffffffu, begin, k);
+    const int e = b + __shfl_sync(0xffffffffu, len, k);
+    float v = identity_of<OP>(OP);
+    for (int j0 = b; j0 < e; j0 += 32 * kWarpBatches) {
+      int pv[kWarpBatches];
+#pragma unroll
+      for (int u = 0; u < kWarpBatches; ++u) {
+        const int j = j0 + 32 * u + lane;
+        pv[u] = __ldg(j < e ? pm + j : &kZeroIndex);
+      }
+      float x[kWarpBatches];
+#pragma unroll
+      for (int u = 0; u < kWarpBatches; ++u) x[u] = __ldg((j0 + 32 * u + lane < e ? p : ident) + pv[u]);
+#pragma unroll
+      for (int u = 0; u < kWarpBatches; ++u) v = fold<OP>(OP, v, x[u]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v = fold<OP>(OP, v, __shfl_xor_sync(0xffffffffu, v, off));
+    }
+    v = __shfl_sync(0xffffffffu, v, 0);
+    if (lane == k) res = v;
+  }
+  if (live && g == 0) out[a.dst0[s] + r] = res;
 }
 
 // A block of the lane combine stages kRows destination rows of a pass's T
@@ -1412,8 +1513,15 @@ extern "C" int segment_combine(const void* part, const void* const* perm,
       !fill_combine(&a, perm, row_ptr, n_ell, rows, n_shards)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int kRowsPerBlock = kCombineThreads / 32;
-  const dim3 grid((a.dst0[n_shards] + kRowsPerBlock - 1) / kRowsPerBlock);
+  // a warp for each kRowsPerWarp rows of a shard, an odd count (see
+  // segment_combine_kernel)
+  constexpr int kRowsPerWarp = 32 / kRowThreads;
+  a.warp0[0] = 0;
+  for (int i = 0; i < n_shards; ++i) {
+    a.warp0[i + 1] = a.warp0[i] + ((rows[i] + kRowsPerWarp - 1) / kRowsPerWarp | 1);
+  }
+  constexpr int kWarps = kCombineThreads / 32;
+  const dim3 grid((a.warp0[n_shards] + kWarps - 1) / kWarps);
   const dim3 block(kCombineThreads);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const float*>(part);

@@ -18,7 +18,7 @@ counts its launches in ``bloom_contains.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -82,6 +82,22 @@ def _check(words: List[torch.Tensor], items: torch.Tensor, nb: List[int],
             raise ValueError(f"num_hashes {h} not in [1, {MAX_HASHES}]")
 
 
+#: (device, stream) -> the any-reduction's state on that stream
+_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _any_state(stream: torch.cuda.Stream) -> torch.Tensor:
+    """The any-reduction's 16-byte state for launches on ``stream``: its
+    word of hit bits and its count of finished blocks.  Made zero once;
+    each launch leaves it zero again, so a call needs no clearing launch.
+    One per stream, so launches on two streams never share one."""
+    key = (stream.device.index, stream.cuda_stream)
+    state = _STATES.get(key)
+    if state is None:
+        state = _STATES[key] = torch.zeros(2, dtype=torch.int64, device=stream.device)
+    return state
+
+
 def bloom_contains(words, items: torch.Tensor, *, num_bits: Ints,
                    num_hashes: Ints, reduce_any: bool = False) -> torch.Tensor:
     """Membership bits of int32 ``items [n]`` (CUDA kernel on the card).
@@ -109,15 +125,15 @@ def bloom_contains(words, items: torch.Tensor, *, num_bits: Ints,
     if n == 0:
         return _shape(torch.zeros(shape, dtype=torch.bool, device=dev), single)
     out = torch.empty(shape, dtype=torch.bool, device=dev)  # every flag written
-    # the any-reduction's word of hit bits (zeroed by the launch)
-    scratch = torch.empty(1, dtype=torch.int64, device=dev) if reduce_any else None
+    stream = torch.cuda.current_stream(dev)
+    state = _any_state(stream) if reduce_any else None
     fn = library("bloom").bloom_contains
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    handle = ctypes.c_void_p(stream.cuda_stream)
     for lo in range(0, F, MAX_FILTERS):
         hi = min(F, lo + MAX_FILTERS)
         part = out[lo:hi]
@@ -126,7 +142,7 @@ def bloom_contains(words, items: torch.Tensor, *, num_bits: Ints,
                     (ctypes.c_ulonglong * (hi - lo))(*nb[lo:hi]),
                     (ctypes.c_int * (hi - lo))(*nh[lo:hi]), hi - lo,
                     items.data_ptr(), n, int(reduce_any), part.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(), stream)
+                    None if state is None else state.data_ptr(), handle)
         if rc != 0:
             raise RuntimeError(f"bloom_contains launch failed: CUDA error {rc}")
         bloom_contains.launches += 1

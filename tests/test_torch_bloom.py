@@ -151,3 +151,96 @@ def test_wrapper_refuses_mixed_devices_and_bad_tables():
                          num_bits=[f.num_bits], num_hashes=4)
     with pytest.raises(TypeError):
         ref.words_as_int64(words.to(torch.int64))
+
+
+# ------------------------------------------------ the "any" output's protocol
+# csrc/bloom.cu's any-reduction: warps take the filters in a turn from their
+# own index, skip a filter whose bit they know (from the block's word or the
+# state's), set the block's and the state's bit at a hit, and leave once
+# every bit is set; at the end each block counts itself in a per-stream
+# state and the last one writes the flags and zeroes the state.  Numpy
+# models of both, under random interleavings.
+
+
+def _any_scan(hits, blocks_of, rng):
+    """The warps' scan, one step of a random warp at a time: ``hits[w, p]``
+    says some id of warp w's turn hits filter p.  A warp reads the state's
+    word at the start of its turn and the block's before each filter, and
+    leaves once every bit is set.  Returns the state's word and the
+    probes made (warp, filter)."""
+    n_warps, n_filters = hits.shape
+    every = (1 << n_filters) - 1
+    seen, block_seen = 0, {}
+    pos = [0] * n_warps  # filters each warp has taken
+    known = [None] * n_warps
+    probes = []
+    live = list(range(n_warps))
+    while live:
+        w = live[int(rng.integers(len(live)))]
+        b = blocks_of[w]
+        if known[w] is None:
+            known[w] = seen
+            block_seen[b] = block_seen.get(b, 0) | seen
+        if known[w] == every or pos[w] == n_filters:
+            live.remove(w)
+            continue
+        p = (w + pos[w]) % n_filters
+        pos[w] += 1
+        known[w] |= block_seen.get(b, 0)
+        if (known[w] >> p) & 1:
+            continue
+        probes.append((w, p))
+        if hits[w, p]:
+            if not (block_seen.get(b, 0) >> p) & 1:
+                block_seen[b] = block_seen.get(b, 0) | (1 << p)
+                seen |= 1 << p
+            known[w] |= 1 << p
+    return seen, probes
+
+
+def test_any_scan_sets_exactly_the_hit_filters():
+    """Random hit patterns (none, rare, every warp) and interleavings: the
+    state's word is the OR of the hits per filter, whatever the order; no
+    filter is skipped before some warp set its bit; and where every warp
+    hits every filter the scan stops after far fewer probes than a full
+    pass."""
+    rng = np.random.default_rng(7)
+    for rep in range(60):
+        n_warps, n_filters = int(rng.integers(1, 64)), int(rng.integers(1, 65))
+        hits = rng.random((n_warps, n_filters)) < (0.0, 0.002, 0.05, 1.0)[rep % 4]
+        blocks_of = [w // 8 for w in range(n_warps)]
+        seen, probes = _any_scan(hits, blocks_of, rng)
+        want = sum(1 << p for p in range(n_filters) if hits[:, p].any())
+        assert seen == want, rep
+        if rep % 4 == 3 and n_warps * n_filters > 64:
+            assert len(probes) < n_warps * n_filters
+
+
+def _any_finish(state, bits, order):
+    """The end of one launch on a shared state (seen word, done count):
+    block b ORs the filters its ids hit (bits[b]: a bool per filter), then
+    counts itself; blocks finish in ``order``; the last writes the flags
+    and zeroes the state."""
+    flags = None
+    for b in order:
+        state["seen"] |= sum(1 << p for p, hit in enumerate(bits[b]) if hit)
+        state["done"] += 1
+        if state["done"] == len(order):  # the last block
+            word, state["seen"], state["done"] = state["seen"], 0, 0
+            flags = [bool((word >> p) & 1) for p in range(len(bits[b]))]
+    return flags
+
+
+def test_any_completion_protocol_is_any_of_the_bits():
+    """Random block orders and repeated calls on one state: every call's
+    flags are any() of its blocks' bits per filter, and the state is zero
+    after each call, so the next call needs no clearing."""
+    rng = np.random.default_rng(3)
+    state = {"seen": 0, "done": 0}
+    for call in range(100):
+        n_blocks, n_filters = int(rng.integers(1, 300)), int(rng.integers(1, 65))
+        p_hit = (0.0, 0.001, 0.05)[call % 3]
+        bits = rng.random((n_blocks, n_filters)) < p_hit
+        flags = _any_finish(state, bits, rng.permutation(n_blocks))
+        assert flags == bits.any(axis=0).tolist()
+        assert state == {"seen": 0, "done": 0}

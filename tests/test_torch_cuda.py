@@ -779,3 +779,127 @@ def test_entry_kernels_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         K.ell_partials_sentinel(d.sentinel_idx()[:3], d.tile_window, table,
                                 window=256 + ops.SENTINEL_PAD, tr=8, combine="sum")
+
+
+@functools.lru_cache(maxsize=1)
+def _combine_graphs():
+    """A star hub whose destination row folds about 1,000 partials (its
+    other rows empty) and a 64-shard R-MAT graph (the most shards a launch
+    takes; rows of every length up to hundreds): (graph, shards) pairs."""
+    out = []
+    for g, n in ((star_graph(128_001), 1), (rmat_graph(40_000, 600_000, seed=23), 64)):
+        out.append((g, preprocess(g, num_shards=n)[1]))
+    return out
+
+
+@pytest.mark.parametrize("combine", COMBINES)
+def test_segment_combine_bitwise_lane_form_per_shard_and_plain(dev, combine):
+    """segment_combine (4 threads a row, the warp a long one) on a
+    1,000-partial hub row with empty rows around it and on 64 shards in one
+    launch, partials with -0.0, +-inf and NaN: bitwise the lane combine at
+    one lane (the warp-per-row order) and one launch per shard; against
+    the plain version min/max bitwise where both are finite or infinite
+    (the plain version keeps a NaN that fminf/fmaxf pass over), sum within
+    tolerance."""
+    rng = np.random.default_rng(29)
+    for g, shards in _combine_graphs():
+        ds = [ell_to_device(csr_to_ell(s, g.num_vertices, window=1024, k=128, tr=8), dev)
+              for s in shards]
+        perm, ptr = [d.perm for d in ds], [d.row_ptr for d in ds]
+        longest = max(int((d.row_ptr[1:] - d.row_ptr[:-1]).max()) for d in ds)
+        if len(ds) == 1:
+            assert longest >= 1000 and int((ds[0].row_ptr[1:] == ds[0].row_ptr[:-1]).sum()) > 0
+        n_ell = sum(d.n_ell for d in ds)
+        x = (rng.standard_normal(n_ell) * 10.0 ** rng.integers(-3, 4, n_ell)).astype(np.float32)
+        pick = rng.random(n_ell) < 0.02
+        x[pick] = rng.choice(np.float32([-0.0, np.inf, -np.inf, np.nan]), int(pick.sum()))
+        part = torch.from_numpy(x).to(dev)
+        before = K.segment_combine.launches
+        acc = K.segment_combine(part, perm, ptr, combine)
+        assert K.segment_combine.launches == before + 1
+        lanes = K.segment_combine_lanes(part[None], perm, ptr, (combine,))
+        assert torch.equal(_bits(acc), _bits(lanes[0]))
+        starts = np.cumsum([0] + [d.n_ell for d in ds])
+        single = torch.cat([K.segment_combine(part[a:b], [d.perm], [d.row_ptr], combine)
+                            for d, a, b in zip(ds, starts[:-1], starts[1:])])
+        assert torch.equal(_bits(acc), _bits(single))
+        plain = K.segment_combine_plain(part, perm, ptr, combine)
+        fin = ~torch.isnan(acc) & ~torch.isnan(plain)
+        assert _close(acc[fin].cpu(), plain[fin].cpu(), combine, atol=1e-2)
+
+
+def _bloom_sized_filters(n_filters, seed=31):
+    """Filters of 2^10 to 2^23 bits, num_hashes cycling 1, 4, 16, each
+    over a random member set filling about a third of its bits: (filters,
+    member sets)."""
+    from repro_torch.core.bloom import BloomFilter32
+
+    rng = np.random.default_rng(seed)
+    out, members = [], []
+    for p in range(n_filters):
+        nb, nh = 1 << int(10 + p % 14), (1, 4, 16)[p % 3]
+        f = BloomFilter32(words=np.zeros(nb // 32, dtype=np.uint32), num_bits=nb,
+                          num_hashes=nh)
+        members.append(rng.integers(-2**31, 2**31, max(1, nb // (3 * nh)),
+                                    dtype=np.int64).astype(np.int32))
+        f.add(members[-1])
+        out.append(f)
+    return out, members
+
+
+@pytest.mark.parametrize("n", [1, 31, 1025, (1 << 16) + 3, 1 << 21])
+@pytest.mark.parametrize("n_filters", [1, 64])
+def test_bloom_bits_bit_exact_with_host_filters(dev, n, n_filters):
+    """The bits for n from 1 to 2^21 ids, one filter and 64 in one launch,
+    tables of 2^10 to 2^23 bits, num_hashes 1/4/16: bit-exact with the
+    host filters (the first four filters, and every filter where n is
+    small) and with the plain version (every filter)."""
+    from repro_torch.kernels.bloom import kernel as BK
+    from repro_torch.kernels.bloom import ops as bops
+
+    filters, members = _bloom_sized_filters(n_filters)
+    rng = np.random.default_rng(n)
+    ids = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    ids[: n // 4] = rng.choice(np.concatenate(members), n // 4)  # hits too
+    staged = bops.stage_filters(filters, dev)
+    items = torch.from_numpy(ids).to(dev)
+    kw = dict(num_bits=staged.num_bits, num_hashes=staged.num_hashes)
+    before = BK.bloom_contains.launches
+    bits = BK.bloom_contains(staged.words, items, **kw)
+    assert BK.bloom_contains.launches == before + 1
+    assert torch.equal(bits, BK.bloom_contains_plain(staged.words, items, **kw))
+    for p, f in enumerate(filters[: 4 if n > 1 << 16 else len(filters)]):
+        assert np.array_equal(bits[p].cpu().numpy(), f.contains(ids)), p
+    # a view 4 B past an aligned start gives the same bits
+    view = torch.cat([items.new_zeros(1), items])[1:]
+    assert torch.equal(BK.bloom_contains(staged.words, view, **kw), bits)
+
+
+@pytest.mark.parametrize("two_streams", [False, True])
+def test_bloom_any_alternating_hit_and_no_hit(dev, two_streams):
+    """100 any-reductions alternating between filters every id hits and
+    empty ones, on one stream and on two in turn with nothing waited for
+    between them: each call's flags are its own (the state each launch
+    leaves behind is clean, and the streams' states are their own)."""
+    from repro_torch.kernels.bloom import kernel as BK
+    from repro_torch.kernels.bloom import ops as bops
+
+    filters = _bloom_filters(16)
+    ids = np.random.default_rng(12).integers(0, 1 << 22, 1 << 18).astype(np.int32)
+    staged = bops.stage_filters(filters, dev)
+    empty = [torch.zeros_like(w) for w in staged.words]
+    items = torch.from_numpy(ids).to(dev)
+    kw = dict(num_bits=staged.num_bits, num_hashes=staged.num_hashes)
+    want = torch.tensor([f.any_member(ids) for f in filters], device=dev)
+    assert want.all()
+    streams = [torch.cuda.Stream(dev) for _ in range(2 if two_streams else 1)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for i in range(100):
+        with torch.cuda.stream(streams[i % len(streams)]):
+            outs.append(BK.bloom_contains(staged.words if i % 2 == 0 else empty, items,
+                                          reduce_any=True, **kw))
+    torch.cuda.synchronize(dev)
+    for i, out in enumerate(outs):
+        assert torch.equal(out, want if i % 2 == 0 else torch.zeros_like(want)), i

@@ -118,6 +118,38 @@ line):
             torch.profiler: each kernel's device time as the engine
             launches it, beside the engine's kernel_s, and the card's busy
             share of the run.
+12. ingest  the main phase's graph written as a binary edge file
+            (``write_edge_file``, 8 B an edge) and stream-ingested
+            (``ShardStore.ingest``, the default 64 MiB spill budget, one
+            finalize worker) into a second store by a child process: every
+            shard container and ``vertexinfo.npz`` byte-identical (SHA-256)
+            to the main phase's store, ``property.json`` the same but for
+            the ELL block that only ingest writes; the pass-1, pass-2 and
+            finalize seconds (trace spans), ``IngestStats`` and the child's
+            peak RSS are recorded.  npz members carry their write time, so
+            the script pins the zip clock for every store it writes.
+13. delta   live mutations on the ingested copy: a resident ``cuda``
+            ``GraphService`` (batch_shards=4, max_lanes=16, max_groups=2)
+            answers 16 BFS/SSSP/WCC/PPR queries (max_iters=3; version 0),
+            then two batches of 2^15 uniform inserts and 2^13 deletes of
+            existing edges publish through ``apply_updates`` (versions 1
+            and 2, every shard touched); at each version the queries are asked
+            again under the tracer: no dirty shard is served from the
+            resident map (``shard.load`` spans), at least one answer moved,
+            one query per program is bitwise a solo non-resident ``cuda``
+            ``VSWEngine`` opened after the publish, and a ``torch`` service
+            agrees (BFS/SSSP/WCC bitwise, PPR within rtol=1e-4, atol=1e-9).
+            ``compact()`` leaves no dirty shard; after ``bump_graph_version``
+            the queries are bitwise version 2's and each shard is read from
+            the store once, every other load served resident.
+            Shard 0 and shard P/2 after compaction are byte-identical to
+            ``encode_shard`` of a from-scratch build of the mutated edge
+            list on the same intervals.  Then ``save_warm_state``, close, and
+            a warm boot: every shard's sources restored, no shard read by the
+            filter build, a repeated query answered from the session cache
+            bitwise, a new query bitwise the cold service's.  Publish,
+            sweep, compaction and boot seconds are recorded (host work on
+            the card's machine: dirty shards decode on the host).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Details go to
@@ -127,6 +159,9 @@ last, ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -203,6 +238,17 @@ LM_DEFAULT_PROMPT, LM_DEFAULT_GEN = 24, 16  # the launcher's defaults
 #: layers.  The parity tests' bf16 tolerance: rtol 2e-2, atol 2e-2 x
 #: max(1, max |logit|) (tests/test_torch_lm.py).
 LM_RTOL = LM_ATOL = 2e-2
+#: npz members carry their write time; every store this script writes gets
+#: this one, so two stores of the same graph can be compared byte for byte
+ZIP_CLOCK = 1_700_000_000.0
+DELTA_PROGS = ("bfs", "sssp", "wcc", "ppr")
+DELTA_QUERIES = 16  # 4 a program
+#: cut from 5: every dirty sweep iteration decodes all 16 shards on the
+#: host (about 4 s on the H100's machine), and at 5 the phase took 400 s
+#: of the smoke's time limit
+DELTA_ITERS = 3
+DELTA_INSERTS, DELTA_DELETES = 1 << 15, 1 << 13  # a batch; two batches
+DELTA_PREFETCH = 8  # loader threads: dirty shards decode on the host
 
 
 def parse_args(argv):
@@ -212,6 +258,8 @@ def parse_args(argv):
     ap.add_argument("--shards", type=int, default=16)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke.json"))
+    ap.add_argument("--ingest-child", nargs=2, metavar=("EDGES", "ROOT"),
+                    help=argparse.SUPPRESS)  # the ingest phase's child process
     return ap.parse_args(argv)
 
 
@@ -752,6 +800,288 @@ class Smoke:
                                          key=lambda kv: -kv[1]["ms"])[:12])
         self.report["trace_fusion_set"] = rep
         print(f"  fusion set: {json.dumps(rep)}")
+
+    # ------------------------------------------------- ingest and delta
+    def ingest(self):
+        """The main phase's graph through the streamed external build, in a
+        child process: see the module docstring."""
+        import numpy as np
+        from repro_torch.core import rmat_graph, write_edge_file
+
+        a = self.args
+        t0 = time.perf_counter()
+        g = rmat_graph(a.vertices, a.edges, seed=a.seed)
+        self.graph = (g.src, g.dst)
+        edges = self.tmp.name + "/edges.bin"
+        nbytes = write_edge_file(edges, g.src, g.dst)
+        write_s = time.perf_counter() - t0
+        del g
+        root = self.tmp.name + "/ingested"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--shards",
+             str(a.shards), "--vertices", str(a.vertices), "--ingest-child",
+             edges, root],
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"ingest child failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        Path(edges).unlink()
+        same, differ = [], []
+        for f in sorted(p.name for p in Path(self.root).iterdir()):
+            if f == "property.json":
+                continue
+            (same if sha256_of(Path(self.root, f)) == sha256_of(Path(root, f))
+             else differ).append(f)
+        if differ or sorted(p.name for p in Path(root).iterdir()) != sorted(
+                p.name for p in Path(self.root).iterdir()):
+            raise AssertionError(f"ingested store differs from the preprocess "
+                                 f"store: {differ[:5]}")
+        want = json.loads(Path(self.root, "property.json").read_text())
+        got = json.loads(Path(root, "property.json").read_text())
+        ell = got.pop("ell", None)
+        if got != want or ell != {"window": 1 << 14, "k": 128, "tr": 8}:
+            raise AssertionError(f"property.json: {got} {ell} != {want}")
+        self.ingest_root = root
+        rep = self.report["ingest"] = {
+            "edge_file_bytes": nbytes, "generate_and_write_s": write_s,
+            "child_wall_s": wall, "files_sha256_equal": len(same),
+            "preprocess_s": self.report["main"]["preprocess_s"], **child}
+        print(f"  edge file {nbytes} B ({write_s:.1f} s with the graph); ingest "
+              f"child {wall:.1f} s: pass 1 {child['pass1_s']:.2f} s, pass 2 "
+              f"{child['pass2_s']:.2f} s, finalize {child['finalize_s']:.2f} s, "
+              f"peak RSS {child['peak_rss_bytes']} B, {child['rss_before_bytes']} "
+              f"B before the ingest (None: not measured); main phase's "
+              f"preprocess {rep['preprocess_s']:.1f} s")
+        print(f"  stats {json.dumps(child['stats'])}")
+        print(f"  {len(same)} files SHA-256 equal to the preprocess store; "
+              f"property.json equal but for its ELL block {ell}")
+
+    def delta(self):
+        """Live mutations, compaction and a warm restart on the ingested
+        copy: see the module docstring."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import ShardStore, VSWEngine, apps
+        from repro_torch.core.graph import Graph
+        from repro_torch.core.sharding import build_shards
+        from repro_torch.kernels.spmv_ell import kernel as K
+        from repro_torch.obs import trace
+        from repro_torch.obs.trace import Tracer
+        from repro_torch.serve import GraphService
+
+        a = self.args
+        root = self.ingest_root
+        meta = ShardStore(root).read_meta()
+        P = meta.num_shards
+        rng = np.random.default_rng(a.seed + 2)
+        srcs = rng.choice(np.flatnonzero(meta.out_deg > 0), size=DELTA_QUERIES,
+                          replace=False)
+        queries = [(DELTA_PROGS[i % 4], int(v)) for i, v in enumerate(srcs)]
+        new_query = ("sssp", int(rng.choice(np.flatnonzero(meta.out_deg > 0))))
+        solo_idx = list(range(len(DELTA_PROGS)))  # one query a program
+        svc_kw = dict(device="cuda", device_resident=True, batch_shards=4,
+                      max_lanes=16, max_groups=2, prefetch_depth=DELTA_PREFETCH)
+        f = lambda v: np.nan_to_num(v, posinf=1e30)
+        rep = self.report["delta"] = {"queries": queries, "versions": {}}
+        lane_k = ("ell_partials_ragged", "segment_combine_lanes")
+
+        def ask(svc, label, traced=False):
+            for n in lane_k:
+                getattr(K, n).launches = 0
+            sweeps0 = svc.stats()["sweeps"]
+            tracer = Tracer() if traced else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with trace.tracing(tracer) if traced else contextlib.nullcontext():
+                with svc.submit_batch():
+                    futs = [svc.submit(p, v, max_iters=DELTA_ITERS)
+                            for p, v in queries]
+                res = [fu.result(timeout=1200) for fu in futs]
+                settle(svc, sweeps0)
+            wall = time.perf_counter() - t0
+            st = svc.last_sweep_stats
+            loads = ([e["args"] for e in tracer.export_chrome()["traceEvents"]
+                      if e.get("name") == "shard.load"] if traced else [])
+            d = {"wall_s": wall, "iterations": len(st),
+                 "iter_time_s": [i.time_s for i in st],
+                 "load_wait_s": [i.load_wait_s for i in st],
+                 "launches": {n: getattr(K, n).launches for n in lane_k},
+                 "cached": sum(r.cached for r in res)}
+            if traced:
+                d["loads"] = {"total": len(loads),
+                              "logical": sum(x["logical"] for x in loads),
+                              "resident": sum(x["from_resident"] for x in loads)}
+            print(f"  {label}: {len(res)} queries in {wall:.2f} s, "
+                  f"{len(st)} iterations {[round(t, 3) for t in d['iter_time_s']]}"
+                  f" s, launches {d['launches']}"
+                  + (f", loads {d['loads']}" if traced else ""))
+            return res, d, loads
+
+        def same(xs, ys, label, ppr_tol=False):
+            for (p, v), x, y in zip(queries, xs, ys):
+                if ppr_tol and p == "ppr":
+                    if not np.allclose(x.values, y.values, rtol=PR_RTOL,
+                                       atol=PR_ATOL):
+                        raise AssertionError(f"{label} {p} {v}: max err "
+                                             f"{np.abs(x.values - y.values).max()}")
+                elif not np.array_equal(f(x.values), f(y.values)):
+                    raise AssertionError(f"{label} {p} {v}: not bitwise equal")
+
+        t0 = time.perf_counter()
+        svc = GraphService.from_store(root, backend="cuda", **svc_kw)
+        rep["cold_boot_s"] = time.perf_counter() - t0
+        rep["cold_boot_reads"] = svc.engine.loading_io.reads
+        print(f"  cold boot {rep['cold_boot_s']:.2f} s "
+              f"({svc.engine.loading_io.reads} reads)")
+        try:
+            v0, d, _ = ask(svc, "version 0")
+            rep["versions"][0] = d
+            cur_src, cur_dst = self.graph
+            answers = {0: v0}
+            for version in (1, 2):
+                ins = (rng.integers(0, meta.num_vertices, DELTA_INSERTS),
+                       rng.integers(0, meta.num_vertices, DELTA_INSERTS))
+                take = rng.choice(len(cur_src), DELTA_DELETES, replace=False)
+                dels = (cur_src[take], cur_dst[take])
+                cur_src, cur_dst = mutate(cur_src, cur_dst, ins, dels)
+                t0 = time.perf_counter()
+                upd = svc.apply_updates(inserts=ins, deletes=dels).result(
+                    timeout=1200)
+                publish_s = time.perf_counter() - t0
+                if upd.graph_version != version or len(upd.shards_touched) != P:
+                    raise AssertionError(f"publish {version}: {upd}")
+                dirty = set(upd.shards_touched)
+                res, d, loads = ask(svc, f"version {version}", traced=True)
+                bad = [x for x in loads if x["shard"] in dirty
+                       and (x["from_resident"] or not x["logical"])]
+                if bad or not loads:
+                    raise AssertionError(f"version {version}: a dirty shard not "
+                                         f"decoded through the overlay: {bad[:3]}")
+                if set(svc.engine._device_shards) & dirty:
+                    raise AssertionError("a dirty shard's decode was kept resident")
+                if d["launches"]["ell_partials_ragged"] == 0:
+                    raise AssertionError("the mutated graph ran no ragged kernel")
+                if all(np.array_equal(f(x.values), f(y.values))
+                       for x, y in zip(res, answers[0])):
+                    raise AssertionError(f"version {version}: no answer moved")
+                t0 = time.perf_counter()
+                K.ell_partials_masked.launches = 0
+                with VSWEngine.from_store(root, backend="cuda", device="cuda",
+                                          device_resident=False, batch_shards=4,
+                                          prefetch_depth=DELTA_PREFETCH) as solo:
+                    if solo.store.delta.version != version:
+                        raise AssertionError("solo engine opened another version")
+                    for i in solo_idx:
+                        p, v = queries[i]
+                        kw = {} if p == "wcc" else {"source": v}
+                        want = solo.run(apps.get_program(p, **kw),
+                                        max_iters=DELTA_ITERS)
+                        qr = res[i]
+                        if not (np.array_equal(f(qr.values), f(want.values))
+                                and qr.iterations == want.num_iterations
+                                and qr.converged == want.converged):
+                            raise AssertionError(f"version {version} {p} {v}: "
+                                                 f"lane != solo run")
+                d["solo_s"] = time.perf_counter() - t0
+                d["solo_masked_launches"] = K.ell_partials_masked.launches
+                t0 = time.perf_counter()
+                with GraphService.from_store(root, backend="torch",
+                                             **svc_kw) as tsvc:
+                    tres, _, _ = ask(tsvc, f"version {version} torch")
+                same(res, tres, f"version {version} cuda vs torch", ppr_tol=True)
+                d["torch_s"] = time.perf_counter() - t0
+                d["publish_s"] = publish_s
+                d["update"] = {"inserted": upd.edges_inserted,
+                               "removed": upd.edges_removed,
+                               "shards_touched": len(upd.shards_touched),
+                               "latency_s": upd.latency_s}
+                rep["versions"][version] = d
+                answers[version] = res
+                print(f"    publish {publish_s:.2f} s ({upd.edges_inserted} in, "
+                      f"{upd.edges_removed} out, {P} shards); no dirty shard "
+                      f"resident; {len(solo_idx)} solo runs bitwise "
+                      f"({d['solo_s']:.1f} s); torch agrees ({d['torch_s']:.1f} s)")
+
+            t0 = time.perf_counter()
+            cst = svc.compact()
+            rep["compact_s"] = time.perf_counter() - t0
+            rep["compaction"] = vars(cst)
+            if svc.stats()["dirty_shards"] != 0 or cst.shards_compacted != P:
+                raise AssertionError(f"compaction left dirty shards: {cst}")
+            svc.bump_graph_version()
+            res, d, loads = ask(svc, "compacted", traced=True)
+            same(res, answers[2], "compacted vs version 2")
+            store_reads = {}
+            for x in loads:
+                if not x["from_resident"]:
+                    store_reads[x["shard"]] = store_reads.get(x["shard"], 0) + 1
+            if (any(x["logical"] for x in loads) or sorted(store_reads) != list(
+                    range(P)) or max(store_reads.values()) != 1
+                    or sorted(svc.engine._device_shards) != list(range(P))):
+                raise AssertionError(f"compacted: shards not resident again "
+                                     f"{store_reads}")
+            rep["versions"]["compacted"] = d
+            print(f"    compact {rep['compact_s']:.2f} s ({cst.runs_absorbed} runs, "
+                  f"{cst.shard_bytes_written} B); answers == version 2 bitwise; "
+                  f"each shard read once, then resident")
+
+            g = Graph(meta.num_vertices, cur_src, cur_dst)
+            store = svc.engine.store
+            ep = store.ell_params()
+            for p in (0, P // 2):
+                v0_, v1_ = (int(x) for x in meta.interval_of(p))
+                m = (g.dst >= v0_) & (g.dst < v1_)
+                sub = Graph(meta.num_vertices, g.src[m], g.dst[m])
+                shard = dataclasses.replace(
+                    build_shards(sub, np.array([v0_, v1_]))[0], shard_id=p)
+                csr_raw, ell_raw, _ = store.encode_shard(
+                    shard, num_vertices=meta.num_vertices, **ep)
+                for fmt, raw in (("csr", csr_raw), ("ell", ell_raw)):
+                    disk = Path(root, store.shard_name(p, fmt)).read_bytes()
+                    if hashlib.sha256(disk).digest() != hashlib.sha256(raw).digest():
+                        raise AssertionError(f"compacted shard {p} {fmt} differs "
+                                             f"from a from-scratch build")
+            rep["compacted_bytes_checked"] = [0, P // 2]
+            print(f"    shards 0 and {P // 2}: compacted CSR and ELL containers "
+                  f"byte-identical to a from-scratch build")
+
+            ckpt = self.tmp.name + "/warm"
+            t0 = time.perf_counter()
+            svc.save_warm_state(ckpt)
+            rep["save_warm_s"] = time.perf_counter() - t0
+            cold_new = svc.query(*new_query, max_iters=DELTA_ITERS)
+        finally:
+            svc.close()
+
+        t0 = time.perf_counter()
+        warm = GraphService.from_store(root, backend="cuda", warm_state=ckpt,
+                                       **svc_kw)
+        rep["warm_boot_s"] = time.perf_counter() - t0
+        with warm:
+            wr = warm.warm_restore_report
+            rep["warm_restore_report"] = wr
+            rep["warm_boot_reads"] = warm.engine.loading_io.reads
+            if not (wr["valid"] and wr["shards_warm"] == P
+                    and warm.engine.loading_io.reads == 0
+                    and wr["sessions_restored"] >= DELTA_QUERIES):
+                raise AssertionError(f"warm restore: {wr}, reads "
+                                     f"{warm.engine.loading_io.reads}")
+            p, v = queries[0]
+            hit = warm.query(p, v, max_iters=DELTA_ITERS)
+            if not (hit.cached and np.array_equal(f(hit.values), f(res[0].values))):
+                raise AssertionError("warm: the repeated query missed the cache")
+            t0 = time.perf_counter()
+            new = warm.query(*new_query, max_iters=DELTA_ITERS)
+            rep["warm_new_query_s"] = time.perf_counter() - t0
+            if new.cached or not np.array_equal(f(new.values), f(cold_new.values)):
+                raise AssertionError("warm: the new query != the cold service's")
+        print(f"  warm boot {rep['warm_boot_s']:.2f} s (cold "
+              f"{rep['cold_boot_s']:.2f} s): {wr['shards_warm']} shards' sources "
+              f"restored, 0 reads, {wr['sessions_restored']} sessions; repeated "
+              f"query cached bitwise; new query bitwise the cold service's")
 
     @staticmethod
     def partials_bytes(torch, idxs, masks, tws, window, tr):
@@ -1606,6 +1936,97 @@ class Smoke:
         return total + run * torch.unique(torch.cat(srcs)).numel()
 
 
+def sha256_of(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def mutate(src, dst, ins, dels):
+    """The delta batch semantics on a plain edge list: every copy of each
+    deleted edge removed, then the inserts appended."""
+    import numpy as np
+
+    pack = lambda s, d: (np.asarray(d, np.int64) << 32) | np.asarray(s, np.int64)
+    keep = ~np.isin(pack(src, dst), np.unique(pack(*dels)))
+    return (np.concatenate([src[keep], np.asarray(ins[0], np.int32)]),
+            np.concatenate([dst[keep], np.asarray(ins[1], np.int32)]))
+
+
+def pin_zip_clock():
+    """Give every npz member this script writes the same write time: the
+    only bytes of a store that depend on the clock."""
+    import types
+    import zipfile
+
+    zipfile.time = types.SimpleNamespace(time=lambda: ZIP_CLOCK,
+                                         localtime=time.localtime)
+
+
+class RssSampler:
+    """Peak resident set size of this process, sampled from
+    ``/proc/self/statm`` every 10 ms on a thread (``ru_maxrss`` keeps the
+    parent's high-water mark across the exec, and the card's machine has
+    no VmHWM).  ``peak`` is None where statm cannot be read."""
+
+    def __init__(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _rss(self):
+        try:
+            return int(Path("/proc/self/statm").read_text().split()[1]) * self.page
+        except (OSError, ValueError, IndexError):
+            return None
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            rss = self._rss()
+            if rss is not None and self.peak is not None:
+                self.peak = max(self.peak, rss)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def ingest_child(args) -> int:
+    """The ingest phase's child: stream-ingest the edge file, print the
+    stats, the three passes' seconds and this process's peak RSS."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import ShardStore
+    from repro_torch.obs import trace
+    from repro_torch.obs.trace import Tracer
+
+    pin_zip_clock()
+    edges, root = args.ingest_child
+    t0 = time.perf_counter()
+    with RssSampler() as rss, trace.tracing(Tracer()) as tr:
+        meta, stats = ShardStore(root).ingest(
+            edges, num_shards=args.shards, num_vertices=args.vertices,
+            window=1 << 14, k=128, tr=8)
+    wall = time.perf_counter() - t0
+    spans = {e["name"]: e["dur"] / 1e6 for e in tr.export_chrome()["traceEvents"]
+             if e.get("name", "").startswith("ingest.") and "dur" in e}
+    print(json.dumps({
+        "ingest_s": wall, "pass1_s": spans["ingest.scan"],
+        "pass2_s": spans["ingest.scatter"], "finalize_s": spans["ingest.finalize"],
+        "peak_rss_bytes": rss.peak, "rss_before_bytes": rss.start,
+        "stats": dataclasses.asdict(stats)}))
+    return 0
+
+
 def spread_of(ms):
     """Median, quartiles and extremes of a list of times."""
     import numpy as np
@@ -1702,6 +2123,8 @@ def device_trace(torch, run, trace_path):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.ingest_child:
+        return ingest_child(args)
     import torch
 
     if not torch.cuda.is_available():
@@ -1720,6 +2143,7 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    pin_zip_clock()
     smoke = Smoke(torch, args)
     t_all = time.perf_counter()
     smoke.phase("build", smoke.build)
@@ -1736,6 +2160,9 @@ def main(argv=None) -> int:
             smoke.phase("sentinel", smoke.sentinel)
             smoke.phase("bloom", smoke.bloom)
             smoke.phase("trace", smoke.trace)
+            smoke.phase("ingest", smoke.ingest)
+            if "ingest" not in smoke.failures:
+                smoke.phase("delta", smoke.delta)
     if smoke.serve_engine is not None:
         smoke.serve_engine.close()
     smoke.report["total_s"] = time.perf_counter() - t_all

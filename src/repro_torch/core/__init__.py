@@ -32,6 +32,17 @@ from .graph import (
     star_graph,
     uniform_graph,
 )
+from .ingest import (
+    IngestStats,
+    csr_from_keys,
+    ingest_edge_file,
+    iter_edge_chunks,
+    keys_of_csr,
+    kway_merge,
+    pack_keys,
+    route_edges,
+    write_edge_file,
+)
 from .pipeline import LoadedShard, PipelineStats, ShardPipeline
 from .scheduler import ShardPlan, ShardScheduler
 from .sharding import GraphMeta, ShardCSR, preprocess
@@ -71,4 +82,13 @@ __all__ = [
     "make_executor",
     "make_lane_executor",
     "resolve_device",
+    "IngestStats",
+    "ingest_edge_file",
+    "iter_edge_chunks",
+    "write_edge_file",
+    "pack_keys",
+    "keys_of_csr",
+    "csr_from_keys",
+    "route_edges",
+    "kway_merge",
 ]

@@ -13,6 +13,13 @@ With a ``device``, ELL shards are moved there on the CONSUMER thread
 the combine order), so prefetch threads never touch the device.  With a
 ``resident`` dict the device copies are kept and reused on later
 iterations without touching cache, disk, decode or the copy again.
+
+A shard with pending delta runs (:mod:`repro_torch.delta`) is decoded
+through the overlay at the sweep's pinned version BEFORE the resident map
+is consulted, and that logical decode is never kept resident: the device
+copy of its base would be the pre-mutation graph.  Compaction's shard
+invalidation drops the resident copy, and the next sweep re-reads the new
+base and keeps it resident again.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ class LoadedShard:
     to_device_s: float = 0.0  # consumer-side host->device copy + order
     from_cache: bool = False
     from_resident: bool = False
+    logical: bool = False  # decoded through the delta overlay (never resident)
     generation: int = 0  # store generation snapshot taken before the read
 
     @property
@@ -105,6 +113,11 @@ class ShardPipeline:
         self.depth = depth
         self.device = device
         self.resident = resident  # shard_id -> DeviceEll, engine-owned
+        # Delta snapshot pin: the engine/lane sweep sets this to the overlay
+        # version it pinned for the CURRENT sweep, so every load — inline
+        # or from a prefetch thread — decodes the same graph version.
+        # None = no overlay, or the latest published state.
+        self.pin: Optional[int] = None
         self._resident_lock = threading.Lock()
         self._pool: Optional[ThreadPoolExecutor] = None
         self._finalizer = None
@@ -148,12 +161,25 @@ class ShardPipeline:
             sp.set(
                 from_cache=ls.from_cache,
                 from_resident=ls.from_resident,
+                logical=ls.logical,
                 load_ms=ls.load_s * 1e3,
             )
             return ls
 
     def _load_impl(self, p: int) -> LoadedShard:
         t0 = time.perf_counter()
+        delta = self.store.delta
+        if delta is not None and delta.has_pending(p, self.pin):
+            # Logical decode: base CSR + pending runs at the pinned version,
+            # merged under the overlay's per-shard lock (atomic against a
+            # compaction swap).  Checked before the resident map, whose copy
+            # of this shard would be the pre-mutation base.  The byte cache
+            # keeps the base CSR container.
+            obj, from_cache = delta.load_logical(p, self.fmt, pin=self.pin,
+                                                 cache=self.cache)
+            csr, ell = (obj, None) if self.fmt == "csr" else (None, obj)
+            return LoadedShard(p, csr, ell, load_s=time.perf_counter() - t0,
+                               from_cache=from_cache, logical=True)
         if self.resident is not None:
             with self._resident_lock:
                 dev = self.resident.get(p)
@@ -189,7 +215,7 @@ class ShardPipeline:
         t0 = time.perf_counter()
         with trace.span("shard.to_device", shard=ls.shard_id):
             ls.ell = ell_to_device(ls.ell, self.device)
-        if self.resident is not None:
+        if self.resident is not None and not ls.logical:
             with self._resident_lock:
                 self.resident[ls.shard_id] = ls.ell
             if self.store.shard_generation(ls.shard_id) != ls.generation:

@@ -107,28 +107,58 @@ class ShardScheduler:
         places processed shards in the cache if possible')."""
         with trace.span("bloom.build", shards=self.meta.num_shards):
             io0 = store.io.snapshot()  # loading-phase I/O isn't per-iteration
-            filters: List[BloomFilter] = []
-            exact: List[np.ndarray] = []
+            ps = list(range(self.meta.num_shards))
+            delta = store.delta
+            # Shards whose unique-source arrays were left warm (by ingest,
+            # a recompaction or a warm restart) need no read at all;
+            # container bytes left warm seed the cache without a read-back
+            # either.  Shards with pending deltas are never cache-warmed
+            # here: their cache slot belongs to the overlay's CSR path, and
+            # their pending insert sources are patched in by the engine's
+            # delta refresh right after construction.
+            need_read = [p for p in ps if store.warm_sources(p) is None]
+            src_of: Dict[int, np.ndarray] = {}
             # Chunked bulk reads: a handful of shards resident at a time —
             # the graph may exceed RAM.
-            ps = list(range(self.meta.num_shards))
             chunk = 8
-            for lo in range(0, len(ps), chunk):
-                part = ps[lo: lo + chunk]
+            for lo in range(0, len(need_read), chunk):
+                part = need_read[lo: lo + chunk]
                 csr_raws = store.shard_bytes_bulk(part, "csr")
                 if warm_cache is not None and cache_fmt != "csr":
                     warm_raws = store.shard_bytes_bulk(part, cache_fmt)
                 else:
                     warm_raws = csr_raws  # no second read of the same bytes
                 for p in part:
-                    srcs = store.decode_csr(p, csr_raws[p]).unique_sources()
-                    if warm_cache is not None:
+                    src_of[p] = store.decode_csr(p, csr_raws[p]).unique_sources()
+                    if warm_cache is not None and not (
+                            delta is not None and delta.has_pending(p)):
                         warm_cache.put(p, warm_raws[p])
-                    filters.append(BloomFilter.build(srcs, fp_rate=self.bloom_fp))
-                    exact.append(srcs)
+            filters: List[BloomFilter] = []
+            exact: List[np.ndarray] = []
+            for p in ps:
+                srcs = src_of.get(p)
+                if srcs is None:
+                    srcs = store.warm_sources(p)
+                    if warm_cache is not None and not (
+                            delta is not None and delta.has_pending(p)):
+                        raw = store.warm_raw(p, cache_fmt)
+                        if raw is not None:
+                            warm_cache.put(p, raw)
+                filters.append(BloomFilter.build(srcs, fp_rate=self.bloom_fp))
+                exact.append(srcs)
             self.filters = filters
             self.exact_sources = exact
             self.loading_io = store.io - io0
+
+    def refresh_shard_sources(self, p: int, srcs: np.ndarray) -> None:
+        """Rebuild one shard's Bloom/exact filter after a delta publish or
+        recompaction (``srcs`` = the CURRENT unique sources of the logical
+        shard, or any superset — supersets cost wasted loads, never
+        correctness).  Host numpy, as in the reference."""
+        if self.filters is not None:
+            self.filters[p] = BloomFilter.build(srcs, fp_rate=self.bloom_fp)
+        if self.exact_sources is not None:
+            self.exact_sources[p] = srcs
 
     # ----------------------------------------------------------- decisions
     def shard_is_active(self, p: int, active_ids: np.ndarray) -> bool:

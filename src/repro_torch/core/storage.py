@@ -6,10 +6,8 @@ persists shards as uncompressed ``.npz`` containers and counts every byte
 that crosses the disk boundary.
 
 The layout is the reference package's, byte for byte, so a store written
-by either package opens in the other.  Two parts of the reference store
-are not carried yet: the streamed external build (:meth:`ShardStore.ingest`
-raises) and live mutations — a store that carries delta files refuses to
-open rather than boot without them (ROADMAP Queue 1, items 4 and 6).
+by either package opens in the other — delta runs, journals, the manifest
+and the compaction stage included (:mod:`repro_torch.delta`).
 """
 
 from __future__ import annotations
@@ -30,10 +28,17 @@ from .sharding import GraphMeta, ShardCSR
 
 __all__ = ["IOStats", "ShardStore"]
 
-#: files and directories of the reference's live-mutation layer; a store
-#: holding any of them has pending mutations this package cannot apply.
-DELTA_PREFIXES = ("delta_run_", "delta_journal_")
+#: npz container keys of one delta run file (repro_torch.delta): destination-
+#: sorted ``(dst<<32|src)`` insert keys plus unique tombstone keys.
+DELTA_RUN_PREFIX = "delta_run_"
 DELTA_MANIFEST = "delta_manifest.json"
+#: per-publish metadata journal (repro_torch.delta.recovery): ABSOLUTE post-
+#: publish degree rows + edge count, written before the manifest commit so
+#: recovery can replay the metadata of a committed publish idempotently.
+DELTA_JOURNAL_PREFIX = "delta_journal_"
+#: staging directory for recompaction's staged-rename swap: new base
+#: containers land here first, the manifest flips, then each file is
+#: renamed into place (recovery finishes or discards, DESIGN.md §12).
 DELTA_STAGE_DIR = "delta_stage"
 
 
@@ -78,6 +83,7 @@ class ShardStore:
         <root>/vertexinfo.npz         in/out degree arrays
         <root>/shard_00042.csr.npz    CSR (row/col/interval)
         <root>/shard_00042.ell.npz    derived windowed ELL arrays
+        <root>/aux_<name>.npz         engine-specific extra data (baselines)
     """
 
     def __init__(self, root: str, *, emulate_bw: Optional[float] = None):
@@ -86,16 +92,6 @@ class ShardStore:
         is HDD RAID at about 150 MB/s)."""
         self.root = root
         os.makedirs(root, exist_ok=True)
-        pending = [
-            f for f in os.listdir(root)
-            if f.startswith(DELTA_PREFIXES) or f in (DELTA_MANIFEST,
-                                                     DELTA_STAGE_DIR)
-        ]
-        if pending:
-            raise NotImplementedError(
-                f"store {root!r} carries live-mutation files "
-                f"({sorted(pending)[:3]}...); applying them is ROADMAP "
-                f"Queue 1 item 6, not ported yet")
         self.io = IOStats()
         self.emulate_bw = emulate_bw
         # The prefetching loader reads from background threads; every
@@ -113,6 +109,65 @@ class ShardStore:
         self._shard_gen: Dict[int, int] = {}
         self._gen_lock = threading.Lock()
         self._ell_params: Optional[Dict[str, int]] = None
+        # Ingest-time warmup: the finalize step of ``ingest`` already holds
+        # each shard's CSR arrays, so it deposits per-shard unique-source
+        # arrays (Bloom filter inputs) and optionally raw container bytes
+        # here.  Engine boot consumes them instead of re-reading every
+        # shard (``ShardScheduler.build_filters``).  In-memory only.
+        self._warm_lock = threading.Lock()
+        self._warm_sources: Dict[int, np.ndarray] = {}
+        self._warm_raw: Dict[Tuple[int, str], bytes] = {}
+        # Live-mutation state (repro_torch.delta): a DeltaOverlay tracking
+        # pending per-shard delta runs.  Attached lazily — on first EdgeLog
+        # use, or at open time when delta run files / a manifest are found
+        # on disk (a store carrying unabsorbed mutations boots with them).
+        self.delta = None
+        if (
+            os.path.exists(os.path.join(root, DELTA_MANIFEST))
+            or os.path.isdir(os.path.join(root, DELTA_STAGE_DIR))
+            or any(
+                f.startswith((DELTA_RUN_PREFIX, DELTA_JOURNAL_PREFIX))
+                for f in os.listdir(root)
+            )
+        ):
+            self.ensure_delta()
+
+    def ensure_delta(self):
+        """Attach (or return) this store's :class:`~repro_torch.delta.
+        DeltaOverlay`, recovering any published delta runs already on disk."""
+        if self.delta is None:
+            from ..delta.overlay import DeltaOverlay  # lazy: avoid a cycle
+
+            self.delta = DeltaOverlay(self)
+        return self.delta
+
+    # ------------------------------------------------------- ingest warmup
+    def set_warm_sources(self, p: int, srcs: np.ndarray) -> None:
+        with self._warm_lock:
+            self._warm_sources[p] = srcs
+
+    def warm_sources(self, p: int) -> Optional[np.ndarray]:
+        """Unique source ids of shard ``p`` if a producer left them warm."""
+        with self._warm_lock:
+            return self._warm_sources.get(p)
+
+    def add_warm_raw(self, p: int, fmt: str, raw: bytes) -> None:
+        with self._warm_lock:
+            self._warm_raw[(p, fmt)] = raw
+
+    def warm_raw(self, p: int, fmt: str) -> Optional[bytes]:
+        with self._warm_lock:
+            return self._warm_raw.get((p, fmt))
+
+    def warm_raw_bytes_total(self) -> int:
+        with self._warm_lock:
+            return sum(len(b) for b in self._warm_raw.values())
+
+    def _drop_warm(self, p: int) -> None:
+        with self._warm_lock:
+            self._warm_sources.pop(p, None)
+            self._warm_raw.pop((p, "csr"), None)
+            self._warm_raw.pop((p, "ell"), None)
 
     # ------------------------------------------------------------------ raw
     def _path(self, name: str) -> str:
@@ -155,8 +210,10 @@ class ShardStore:
 
     # ------------------------------------------------------- invalidation
     def register_invalidation(self, hook: Callable[[int], None]) -> None:
-        """Call ``hook(shard_id)`` whenever an existing shard is replaced,
-        so cached raw bytes and decoded/device copies can be dropped."""
+        """Call ``hook(shard_id)`` whenever an existing shard is replaced
+        (re-ingest, overwrite, compaction) or removed, or a delta publish
+        changes it, so cached raw bytes and decoded/device copies can be
+        dropped."""
         self._invalidation_hooks.append(hook)
 
     def unregister_invalidation(self, hook: Callable[[int], None]) -> None:
@@ -172,8 +229,12 @@ class ShardStore:
         with self._gen_lock:
             return self._shard_gen.get(p, 0)
 
-    def invalidate_shard(self, p: int) -> None:
-        """Bump the shard's generation and fire the hooks."""
+    def invalidate_shard(self, p: int, *, drop_warm: bool = True) -> None:
+        """Bump the shard's generation and fire the hooks.  ``drop_warm=False``
+        is the delta-publish case: base bytes are unchanged (warm base-source
+        arrays stay valid) but decoded/cached/device copies are stale."""
+        if drop_warm:
+            self._drop_warm(p)  # producers re-deposit after a rewrite
         with self._gen_lock:
             self._shard_gen[p] = self._shard_gen.get(p, 0) + 1
         for hook in list(self._invalidation_hooks):
@@ -183,22 +244,28 @@ class ShardStore:
         return os.path.getsize(self._path(name))
 
     # ------------------------------------------------------------- metadata
-    def write_meta(self, meta: GraphMeta) -> None:
+    def write_meta(
+        self, meta: GraphMeta, *, ell_params: Optional[Dict[str, int]] = None
+    ) -> None:
         prop = {
             "num_vertices": meta.num_vertices,
             "num_edges": meta.num_edges,
             "num_shards": meta.num_shards,
             "intervals": meta.intervals.tolist(),
         }
-        if self._ell_params is None and self.exists("property.json"):
-            # a fresh process rewriting the metadata of an existing store
-            # carries the persisted ELL block forward
-            old = json.loads(self.read_bytes("property.json"))
-            if "ell" in old:
-                self._ell_params = {k: int(v) for k, v in old["ell"].items()}
-        if self._ell_params is not None:
-            prop["ell"] = {k: int(self._ell_params[k])
-                           for k in ("window", "k", "tr")}
+        if ell_params is None:
+            if self._ell_params is None and self.exists("property.json"):
+                # a fresh process rewriting the metadata of an existing
+                # store (e.g. a delta publish) carries the ELL block forward
+                old = json.loads(self.read_bytes("property.json"))
+                if "ell" in old:
+                    self._ell_params = {k: int(v) for k, v in old["ell"].items()}
+            ell_params = self._ell_params
+        if ell_params is not None:
+            # persisted so the delta overlay can rebuild the device (ELL)
+            # format of a mutated shard without reading the base ELL file
+            prop["ell"] = {k: int(ell_params[k]) for k in ("window", "k", "tr")}
+            self._ell_params = prop["ell"]
         self.write_bytes("property.json", json.dumps(prop).encode())
         self.write_bytes(
             "vertexinfo.npz",
@@ -216,6 +283,20 @@ class ShardStore:
             in_deg=vi["in_deg"],
             out_deg=vi["out_deg"],
         )
+
+    def ell_params(self) -> Dict[str, int]:
+        """The (window, k, tr) every shard of this store was encoded with:
+        the ``ell`` block of ``property.json``, else one read of shard 0's
+        ELL container header."""
+        if self._ell_params is None:
+            if self.exists("property.json"):
+                prop = json.loads(self.read_bytes("property.json"))
+                if "ell" in prop:
+                    self._ell_params = {k: int(v) for k, v in prop["ell"].items()}
+            if self._ell_params is None:
+                ell = self.decode_ell(0, self.shard_bytes(0, "ell"))
+                self._ell_params = {"window": ell.window, "k": ell.k, "tr": ell.tr}
+        return self._ell_params
 
     # --------------------------------------------------------------- shards
     #
@@ -237,7 +318,9 @@ class ShardStore:
         k: int,
         tr: int,
     ) -> Tuple[bytes, bytes, EllShard]:
-        """Encode one shard's CSR + derived ELL container bytes."""
+        """Encode one shard's CSR + derived ELL container bytes without
+        touching disk — shared by :meth:`write_shard` and recompaction's
+        staged-rename swap (which writes to the staging dir itself)."""
         ell = csr_to_ell(shard, num_vertices, window=window, k=k, tr=tr)
         csr_raw = _save_npz_bytes(
             interval=np.array([shard.v0, shard.v1], dtype=np.int64),
@@ -264,12 +347,14 @@ class ShardStore:
         window: int,
         k: int,
         tr: int,
+        capture: Optional[Dict[Tuple[int, str], bytes]] = None,
     ) -> EllShard:
         """Persist CSR + derived device (ELL) format; returns the EllShard.
 
         Overwriting an existing shard id bumps the shard's generation and
         notifies every registered invalidation hook AFTER the new bytes
-        land.
+        land.  ``capture`` (ingest's cache warmup) receives the encoded
+        container bytes, so a cache can be seeded without a read-back.
         """
         overwrite = self.exists(self.shard_name(shard.shard_id, "csr")) or self.exists(
             self.shard_name(shard.shard_id, "ell")
@@ -279,6 +364,9 @@ class ShardStore:
         )
         self.write_bytes(self.shard_name(shard.shard_id, "csr"), csr_raw)
         self.write_bytes(self.shard_name(shard.shard_id, "ell"), ell_raw)
+        if capture is not None:
+            capture[(shard.shard_id, "csr")] = csr_raw
+            capture[(shard.shard_id, "ell")] = ell_raw
         if self._ell_params is None:
             self._ell_params = {"window": window, "k": k, "tr": tr}
         if overwrite:
@@ -311,15 +399,71 @@ class ShardStore:
             tile_window=z["tile_window"], nnz=nnz,
         )
 
-    def load_shard(self, p: int, fmt: str = "csr"):
-        """Read + decode one shard."""
+    def load_shard(self, p: int, fmt: str = "csr", *, pin: Optional[int] = None):
+        """Load ONE LOGICAL shard: base container plus any pending delta
+        runs merged in (repro_torch.delta).  ``pin`` selects the delta
+        snapshot (publish sequence) to decode at; ``None`` means the latest
+        published state.  Without pending runs this is a plain base read +
+        decode."""
+        if self.delta is not None and self.delta.has_pending(p, pin):
+            return self.delta.load_logical(p, fmt, pin=pin)[0]
         raw = self.shard_bytes(p, fmt)
         if fmt == "csr":
             return self.decode_csr(p, raw)
         return self.decode_ell(p, raw)
 
-    def ingest(self, path: str, **kwargs):
-        """The streamed two-pass external build of the reference store."""
-        raise NotImplementedError(
-            "ShardStore.ingest is ROADMAP Queue 1 item 4, not ported yet; "
-            "build a store with VSWEngine.from_graph or the reference package")
+    def load_shards(self, ps: Sequence[int], fmt: str = "csr") -> Dict[int, object]:
+        """Bulk read + decode of logical shards, all at one delta version
+        (every raw resident at once — callers that need streaming chunk
+        their own :meth:`shard_bytes_bulk` calls instead)."""
+        pin = self.delta.version if self.delta is not None else None
+        dirty = {p for p in ps
+                 if self.delta is not None and self.delta.has_pending(p, pin)}
+        out = {p: self.load_shard(p, fmt, pin=pin) for p in ps if p in dirty}
+        raws = self.shard_bytes_bulk([p for p in ps if p not in dirty], fmt)
+        decode = self.decode_csr if fmt == "csr" else self.decode_ell
+        out.update({p: decode(p, raw) for p, raw in raws.items()})
+        return out
+
+    # ------------------------------------------------------------ ingestion
+    def ingest(
+        self,
+        path: str,
+        *,
+        edges_per_shard: Optional[int] = None,
+        num_shards: Optional[int] = None,
+        num_vertices: Optional[int] = None,
+        chunk_edges: int = 1 << 20,
+        mem_budget_bytes: int = 64 << 20,
+        window: int = 1 << 14,
+        k: int = 128,
+        tr: int = 8,
+        fmt: Optional[str] = None,
+        finalize_workers: int = 1,
+        warm_sources: bool = True,
+        warm_bytes: int = 0,
+    ):
+        """Stream an on-disk edge file into this store — the out-of-core
+        counterpart of ``preprocess`` + ``write_meta``/``write_shard``
+        (two-pass external build, :mod:`repro_torch.core.ingest`).  Peak
+        memory is O(chunk + one shard); the files are byte for byte those
+        of the in-memory path.  Returns ``(GraphMeta, IngestStats)``."""
+        from .ingest import ingest_edge_file  # local: avoids an import cycle
+
+        return ingest_edge_file(
+            self, path, edges_per_shard=edges_per_shard, num_shards=num_shards,
+            num_vertices=num_vertices, chunk_edges=chunk_edges,
+            mem_budget_bytes=mem_budget_bytes, window=window, k=k, tr=tr,
+            fmt=fmt, finalize_workers=finalize_workers,
+            warm_sources=warm_sources, warm_bytes=warm_bytes,
+        )
+
+    # ------------------------------------------------------ auxiliary blobs
+    def write_aux(self, name: str, **arrays) -> None:
+        self.write_bytes(f"aux_{name}.npz", _save_npz_bytes(**arrays))
+
+    def read_aux(self, name: str) -> Dict[str, np.ndarray]:
+        return _load_npz_bytes(self.read_bytes(f"aux_{name}.npz"))
+
+    def aux_exists(self, name: str) -> bool:
+        return self.exists(f"aux_{name}.npz")

@@ -184,12 +184,52 @@ class VSWEngine:
             self, store.unregister_invalidation, _hook
         )
         store.register_invalidation(_hook)
+        # Live-mutation state (repro_torch.delta): the last overlay version
+        # whose metadata/filter changes this engine has absorbed.
+        # Refreshing at sweep start (never mid-sweep) keeps a sweep's
+        # degrees, filters and shard decodes on ONE graph version.
+        self._delta_seen = -1
+        self._refresh_delta_state()
 
     def _on_shard_invalidated(self, p: int) -> None:
-        """Store callback: shard ``p`` was overwritten on disk."""
+        """Store callback: shard ``p`` was overwritten, removed, compacted
+        or changed by a delta publish — drop its cached bytes and its
+        resident device copy."""
         if self.cache is not None:
             self.cache.invalidate(p)
         self.pipeline.drop_resident(p)
+
+    # ------------------------------------------------------- live mutations
+    def _refresh_delta_state(self) -> None:
+        """Absorb graph mutations published since this engine's last sweep:
+        refresh the degree arrays / edge count IN PLACE (the scheduler and
+        any live lane sweep share ``meta``, and ``pre`` divides by
+        out-degree) and rebuild the Bloom/exact filters of every shard a
+        publish touched — base sources (warm, or one read) plus pending
+        insert sources.  Deleted sources stay until the shard recompacts:
+        a superset filter costs a wasted load, never correctness.  Called
+        only between sweeps."""
+        delta = self.store.delta
+        if delta is None:
+            return
+        v = delta.version
+        if v == self._delta_seen:
+            return
+        m = self.store.read_meta()
+        self.meta.in_deg[:] = m.in_deg
+        self.meta.out_deg[:] = m.out_deg
+        self.meta.num_edges = m.num_edges
+        for p in delta.publishes_since(self._delta_seen):
+            srcs = self.store.warm_sources(p)
+            if srcs is None:
+                srcs = self.store.decode_csr(
+                    p, self.store.shard_bytes(p, "csr")).unique_sources()
+                self.store.set_warm_sources(p, srcs)
+            pend = delta.pending_insert_sources(p, v)
+            if len(pend):
+                srcs = np.union1d(srcs, pend)
+            self.scheduler.refresh_shard_sources(p, srcs)
+        self._delta_seen = v
 
     # ------------------------------------------------------------- factory
     @classmethod
@@ -237,12 +277,56 @@ class VSWEngine:
         """Which on-disk representation this backend consumes."""
         return "csr" if self.backend_name == "numpy" else "ell"
 
+    @classmethod
+    def from_edge_file(
+        cls,
+        path: str,
+        root: str,
+        *,
+        edges_per_shard: Optional[int] = None,
+        num_shards: Optional[int] = None,
+        num_vertices: Optional[int] = None,
+        chunk_edges: int = 1 << 20,
+        mem_budget_bytes: int = 64 << 20,
+        window: int = 1 << 14,
+        k: int = 128,
+        tr: int = 8,
+        fmt: Optional[str] = None,
+        emulate_bw: Optional[float] = None,
+        device="cuda",
+        **engine_kwargs,
+    ) -> "VSWEngine":
+        """Stream-ingest an on-disk edge file into ``root`` (bounded-memory
+        external build, :mod:`repro_torch.core.ingest`) and open an engine
+        on it.  The full edge list is never resident."""
+        resolve_device(device)  # fail before the ingest work
+        store = ShardStore(root, emulate_bw=emulate_bw)
+        store.ingest(
+            path, edges_per_shard=edges_per_shard, num_shards=num_shards,
+            num_vertices=num_vertices, chunk_edges=chunk_edges,
+            mem_budget_bytes=mem_budget_bytes, window=window, k=k, tr=tr,
+            fmt=fmt,
+        )
+        return cls(store, device=device, **engine_kwargs)
+
     @contextlib.contextmanager
     def _sweep_session(self):
-        """One sweep's delta scope.  The reference pins a delta overlay
-        version here; the port's stores carry no delta files (the store
-        refuses them, ROADMAP Queue 1 item 6), so there is nothing to pin."""
-        yield None
+        """One sweep's delta scope: absorb published mutations, then pin the
+        overlay version so every shard decode in the sweep — prefetch
+        threads included — sees the same snapshot, and background
+        recompaction cannot absorb runs this sweep still needs."""
+        self._refresh_delta_state()
+        delta = self.store.delta
+        if delta is None:
+            yield None
+            return
+        pin = delta.acquire_pin()
+        self.pipeline.pin = pin
+        try:
+            yield pin
+        finally:
+            self.pipeline.pin = None
+            delta.release_pin(pin)
 
     @property
     def loading_io(self):
@@ -263,7 +347,8 @@ class VSWEngine:
     def run(self, program: VertexProgram, *, max_iters: int = 100) -> RunResult:
         with trace.span("vsw.run", program=program.name,
                         backend=self.backend_name):
-            return self._run(program, max_iters=max_iters)
+            with self._sweep_session():
+                return self._run(program, max_iters=max_iters)
 
     def _run(self, program: VertexProgram, *, max_iters: int) -> RunResult:
         meta = self.meta

@@ -28,7 +28,7 @@ item 8.
 """
 
 from .batcher import LaneBatcher, pad_lanes
-from .service import GraphService, QueryResult, ServiceOverloaded
+from .service import GraphService, QueryResult, ServiceOverloaded, UpdateResult
 from .session import SessionCache
 from .sweep import (
     FusedSweep,
@@ -43,6 +43,7 @@ from .sweep import (
 __all__ = [
     "GraphService",
     "QueryResult",
+    "UpdateResult",
     "ServiceOverloaded",
     "LaneBatcher",
     "pad_lanes",

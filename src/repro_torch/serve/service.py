@@ -21,10 +21,14 @@ source, graph-version), so repeat queries bypass the queue.
 
 The engine runs on ``device`` (default ``"cuda"``; pass ``device="cpu"``
 to serve on the CPU, where the kernels' plain versions run).  Live edge
-mutations, warm restarts and compaction wait for the delta port (ROADMAP
-Queue 1 item 6), the telemetry ticker for the observability port (item 7),
-and mesh serving for the multi-device port (item 8): each raises
-``NotImplementedError``.
+mutations (:meth:`GraphService.apply_updates`) publish between sweeps as
+delta runs (:mod:`repro_torch.delta`); a shard with pending runs is decoded
+on the host through the overlay and never served from the resident device
+copy until compaction folds the runs into its base.  Warm restarts
+(``from_store(warm_state=)``, :meth:`GraphService.save_warm_state`) use
+:mod:`repro_torch.checkpoint.warm_state`.  The telemetry ticker waits for
+the observability port (ROADMAP Queue 1 item 7) and mesh serving for the
+multi-device port (item 8): each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import os
 import threading
 import time
 from collections import deque
@@ -50,9 +55,9 @@ from .batcher import LaneBatcher
 from .session import SessionCache
 from .sweep import FusedSweep, LaneResult, LaneSeed
 
-__all__ = ["GraphService", "QueryResult", "ServiceOverloaded"]
+__all__ = ["GraphService", "QueryResult", "ServiceOverloaded", "UpdateResult"]
 
-_DELTA = "ROADMAP Queue 1 item 6"
+_TELEMETRY = "ROADMAP Queue 1 item 7"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -85,7 +90,37 @@ class QueryResult:
     sweep_s: float = 0.0
     cached: bool = False  # served from the session cache
     groups: int = 1  # program groups interleaved on the serving sweep
-    graph_version: int = 0  # the graph version the result was computed at
+    # The graph version this result was computed at.  Every sweep runs
+    # pinned to ONE version (updates publish strictly between sweeps), so a
+    # result is never a mix of two edge states.
+    graph_version: int = 0
+
+
+@dataclasses.dataclass
+class UpdateResult:
+    """One applied mutation batch: the version that made it visible.
+
+    ``edges_inserted`` / ``edges_removed`` / ``shards_touched`` describe
+    the PUBLISH GROUP the batch rode in: batches staged while the worker
+    was busy are folded into one publish (one version bump), and every
+    batch's future reports that group's aggregate extent.
+    """
+
+    graph_version: int
+    edges_inserted: int
+    edges_removed: int
+    shards_touched: Tuple[int, ...]
+    latency_s: float
+
+
+@dataclasses.dataclass
+class _PendingUpdate:
+    """One staged ``apply_updates`` batch awaiting the next publish point."""
+
+    inserts: Optional[Tuple]
+    deletes: Optional[Tuple]
+    future: "Future[UpdateResult]"
+    t_submit: float
 
 
 @dataclasses.dataclass
@@ -130,9 +165,6 @@ class GraphService:
         fuse_programs: bool = True,
         ragged: bool = True,
     ):
-        if auto_compact_runs is not None:
-            raise _not_ported("auto_compact_runs (background compaction)",
-                              _DELTA)
         self.engine = engine
         self.batcher = LaneBatcher(max_lanes, pad_pow2=pad_pow2,
                                    max_groups=max_groups,
@@ -145,6 +177,9 @@ class GraphService:
         # Ragged (DESIGN.md §14): one ragged launch per shard batch covers
         # every fusion group (torch/cuda lane executors).
         self.ragged = ragged
+        # Set by ``from_store(warm_state=...)``: the apply_warm_state report
+        # (None = no warm restore was attempted).
+        self.warm_restore_report: Optional[Dict[str, Any]] = None
 
         # Latency histograms fed at retirement, sweep stats ingested after
         # every fusion set, so ``metrics_snapshot()`` reports tail latency
@@ -159,6 +194,8 @@ class GraphService:
         self.last_sweep_stats: List[Any] = []
 
         self._pending: Deque[_Pending] = deque()
+        self._updates: Deque[_PendingUpdate] = deque()
+        self._edge_log = None  # lazy: most services never mutate
         self._cond = threading.Condition()
         self._closed = False
         self._engine_closed = False
@@ -170,6 +207,18 @@ class GraphService:
         self._multi_group_sweeps = 0
         self._bytes_read = 0.0
         self._shard_loads = 0.0
+        self._updates_done = 0
+        # LSM-style background maintenance: absorb pending delta runs into
+        # base shards once a shard accumulates ``auto_compact_runs`` runs.
+        # The recompactor coordinates with sweeps through overlay pins, so
+        # it is safe while queries are in flight.
+        self._recompactor = None
+        if auto_compact_runs is not None:
+            from ..delta import Recompactor
+
+            self._recompactor = Recompactor(engine.store,
+                                            min_runs=auto_compact_runs)
+            self._recompactor.start()
         self._worker = threading.Thread(target=self._serve_loop,
                                         name="graphserve-worker", daemon=True)
         self._worker.start()
@@ -213,12 +262,48 @@ class GraphService:
     def from_store(cls, root: str, *, warm_state=None,
                    prewarm_cache: bool = False, **kwargs) -> "GraphService":
         """Serve from an already-populated store directory (either
-        package's).  Warm restarts (``warm_state=``, ``prewarm_cache=``)
-        wait for the delta port."""
-        if warm_state is not None or prewarm_cache:
-            raise _not_ported("warm_state= (warm restart)", _DELTA)
+        package's, e.g. one built by ``ShardStore.ingest``).
+
+        ``warm_state`` (DESIGN.md §12) restores a warm-restart checkpoint:
+        a :class:`~repro_torch.checkpoint.warm_state.WarmState` or a
+        checkpoint directory (its latest snapshot; either package's).
+        Still-valid per-shard source arrays are deposited before the engine
+        builds its filters — those shards are not read at boot — and, when
+        the store's graph content is unchanged since the snapshot, the
+        session cache is repopulated.  The store on disk is ALWAYS
+        authoritative: a stale or mismatched snapshot degrades to a cold
+        boot (see ``warm_restore_report``), never to wrong answers.
+        ``prewarm_cache=True`` also re-reads the snapshot's byte-cache warm
+        set into the new engine's cache.
+        """
         service_kw = cls._split(kwargs)
-        return cls(VSWEngine.from_store(root, **kwargs), **service_kw)
+        if warm_state is None:
+            return cls(VSWEngine.from_store(root, **kwargs), **service_kw)
+        from ..checkpoint import warm_state as _ws
+        from ..core.storage import ShardStore
+
+        ws = warm_state
+        if isinstance(ws, (str, os.PathLike)):
+            ws = _ws.WarmStateCheckpointer(str(ws)).restore()
+        store = ShardStore(root, emulate_bw=kwargs.pop("emulate_bw", None))
+        report = _ws.apply_warm_state(store, ws)
+        engine = VSWEngine(store, **kwargs)
+        if prewarm_cache:
+            report["cache_prewarmed"] = _ws.prewarm_cache(engine, ws)
+        if report["valid"]:
+            service_kw.setdefault("graph_version", ws.graph_version)
+        svc = cls(engine, **service_kw)
+        report["sessions_restored"] = svc._restore_warm_sessions(ws, report)
+        svc.warm_restore_report = report
+        return svc
+
+    @classmethod
+    def from_edge_file(cls, path: str, root: str, **kwargs) -> "GraphService":
+        """Stream-ingest an edge file into ``root`` (bounded-memory external
+        build) and start serving from it; ``device=`` (default ``"cuda"``)
+        goes to the engine with the other engine options."""
+        service_kw = cls._split(kwargs)
+        return cls(VSWEngine.from_edge_file(path, root, **kwargs), **service_kw)
 
     # -------------------------------------------------------------- submit
     def submit(self, program: str, source: int, *, max_iters: int = 100,
@@ -293,38 +378,140 @@ class GraphService:
             yield self
 
     # ------------------------------------------------------------- updates
-    def apply_updates(self, inserts=None, deletes=None):
-        """Live edge mutations: wait for the delta port."""
-        raise _not_ported("apply_updates (live edge mutations)", _DELTA)
+    def apply_updates(self, inserts=None,
+                      deletes=None) -> "Future[UpdateResult]":
+        """Stage one edge-mutation batch; the future resolves once the
+        batch is PUBLISHED (durable delta runs + a new graph version).
 
-    def compact(self):
-        """Delta compaction: waits for the delta port."""
-        raise _not_ported("compact (delta compaction)", _DELTA)
+        Updates become visible atomically between sweeps: queries already
+        riding a sweep finish on the version they started at; any fusion
+        set formed after the publish runs on the new version.  Batch
+        semantics (deletes before inserts, a delete removes all copies) are
+        :class:`~repro_torch.delta.EdgeLog`'s.  Vertex ids must lie in the
+        store's fixed ``[0, num_vertices)`` range.
+        """
+        if self._closed:
+            raise RuntimeError("GraphService is closed")
+        from ..delta.edgelog import _norm_edges  # validate on caller thread
+
+        n = self.engine.meta.num_vertices
+        ins = _norm_edges(inserts, n, "inserts")
+        dels = _norm_edges(deletes, n, "deletes")
+        fut: "Future[UpdateResult]" = Future()
+        upd = _PendingUpdate(inserts=ins, deletes=dels, future=fut,
+                             t_submit=time.perf_counter())
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("GraphService is closed")
+            self._updates.append(upd)
+            self._cond.notify_all()
+        return fut
+
+    def _publish_updates(self, updates: List[_PendingUpdate]) -> None:
+        """Publish staged mutation batches (worker thread, between sweeps)."""
+        if self._edge_log is None:
+            from ..delta import EdgeLog
+
+            self._edge_log = EdgeLog(self.engine.store)
+        try:
+            with trace.span("service.publish", batches=len(updates)):
+                for u in updates:
+                    self._edge_log.append(inserts=u.inserts, deletes=u.deletes)
+                pub = self._edge_log.publish()
+        except BaseException as exc:
+            for u in updates:
+                if not u.future.done():
+                    u.future.set_exception(exc)
+            return
+        with self._cond:
+            self.graph_version += 1
+            version = self.graph_version
+            self._updates_done += len(updates)
+        self.sessions.drop_stale_versions(version)
+        for u in updates:
+            u.future.set_result(UpdateResult(
+                graph_version=version, edges_inserted=pub.edges_inserted,
+                edges_removed=pub.edges_removed,
+                shards_touched=pub.shards_touched,
+                latency_s=time.perf_counter() - u.t_submit))
 
     def bump_graph_version(self) -> int:
-        """Graph versions move with delta publishes: waits for the delta
-        port."""
-        raise _not_ported("bump_graph_version (graph versions)", _DELTA)
+        """Invalidate all cached results (graph changed underneath).  For
+        actual edge mutations use :meth:`apply_updates`, which bumps the
+        version itself at the publish point."""
+        with self._cond:
+            self.graph_version += 1
+            v = self.graph_version
+        self.sessions.drop_stale_versions(v)
+        return v
+
+    def compact(self):
+        """Synchronously absorb every pending delta run into the base
+        shards (safe while serving — coordinates with sweeps through
+        overlay pins).  Each compacted shard's resident device copy is
+        dropped by the invalidation hook; the next sweep keeps the new
+        base resident.  Returns :class:`~repro_torch.delta.CompactionStats`."""
+        from ..delta import Recompactor
+
+        rc = self._recompactor or Recompactor(self.engine.store)
+        return rc.compact(rc.dirty_shards())
 
     def save_warm_state(self, directory: str, *, step: Optional[int] = None,
                         keep: int = 2) -> str:
-        """Warm-restart checkpoints: wait for the delta port."""
-        raise _not_ported("save_warm_state (warm restart)", _DELTA)
+        """Snapshot this service's warm state (Bloom sources, byte-cache
+        warm set, delta coordinates, session-cache results) into an atomic
+        on-disk checkpoint (DESIGN.md §12).  Safe while serving; restore
+        with ``GraphService.from_store(root, warm_state=directory)``.
+        Returns the committed snapshot directory."""
+        from ..checkpoint.warm_state import (
+            WarmStateCheckpointer,
+            capture_warm_state,
+        )
+
+        state = capture_warm_state(self)
+        return WarmStateCheckpointer(directory, keep=keep).save(state, step=step)
+
+    def _restore_warm_sessions(self, ws, report) -> int:
+        """Repopulate the session cache from a snapshot whose graph content
+        provably matches the store (``report["sessions_valid"]``)."""
+        if not report.get("valid") or not report.get("sessions_valid"):
+            return 0
+        n = 0
+        for e in ws.sessions:
+            qr = QueryResult(
+                request_id=-1, program=e.program, source=e.source,
+                values=np.asarray(e.values), iterations=e.iterations,
+                converged=e.converged, latency_s=0.0, bytes_read=0.0,
+                shard_loads=0.0, lanes=0, cached=True,
+                graph_version=self.graph_version)
+            self.sessions.put((tuple(e.key), int(e.source), self.graph_version),
+                              qr)
+            n += 1
+        return n
 
     def start_telemetry(self, **kwargs):
         """The telemetry ticker: waits for the observability port."""
-        raise _not_ported("start_telemetry (time series and SLOs)",
-                          "ROADMAP Queue 1 item 7")
+        raise _not_ported("start_telemetry (time series and SLOs)", _TELEMETRY)
 
     # --------------------------------------------------------- worker loop
     def _serve_loop(self) -> None:
         while True:
             with self._cond:
-                while not self._pending and not self._closed:
+                while (not self._pending and not self._updates
+                       and not self._closed):
                     self._cond.wait()
-                if not self._pending and self._closed:
+                if not self._pending and not self._updates and self._closed:
                     return
-                groups = self.batcher.form_fused(self._pending)
+                updates: List[_PendingUpdate] = list(self._updates)
+                self._updates.clear()
+                groups = (self.batcher.form_fused(self._pending)
+                          if self._pending else [])
+            if updates:
+                # Publish BEFORE the next sweep: the fusion set just formed
+                # (and everything after it) runs on the new version.
+                # Sweeps and publishes share this worker thread, so they
+                # never interleave.
+                self._publish_updates(updates)
             if groups:
                 self._run_fusion_set(groups)
 
@@ -339,6 +526,8 @@ class GraphService:
         t_admit0 = time.perf_counter()
         for p in admitted:
             p.t_admit = t_admit0
+        # The whole sweep — lanes backfilled mid-flight included — runs at
+        # this version: publishes only happen on this thread between sweeps.
         version = self.graph_version
 
         def backfill(group: int, n_free: int) -> List[LaneSeed]:
@@ -426,7 +615,7 @@ class GraphService:
         """Aggregate serving counters (loads/bytes are lane-attributed)."""
         with self._cond:
             done = self._queries_done
-            return {
+            out = {
                 "queries_completed": done,
                 "sweeps": self._sweeps,
                 "multi_group_sweeps": self._multi_group_sweeps,
@@ -436,9 +625,16 @@ class GraphService:
                 "loads_per_query": self._shard_loads / done if done else 0.0,
                 "session_hits": self.sessions.hits,
                 "session_misses": self.sessions.misses,
+                "updates_published": self._updates_done,
+                "updates_pending": len(self._updates),
                 "graph_version": self.graph_version,
                 "mesh_devices": 0,
             }
+        delta = self.engine.store.delta
+        out["dirty_shards"] = len(delta.dirty_shards()) if delta else 0
+        if self._recompactor is not None:
+            out["shards_compacted"] = self._recompactor.total.shards_compacted
+        return out
 
     def metrics_snapshot(self, *, window: bool = False) -> Dict[str, Any]:
         """Tail-latency + stage-timing snapshot (DESIGN.md §11).
@@ -486,13 +682,17 @@ class GraphService:
     def close(self, *, close_engine: bool = True) -> None:
         """Drain the queue, stop the worker, release the engine.
         Idempotent and thread-safe: every caller returns only once the
-        serve worker has exited."""
+        serve worker has exited AND any in-flight background compaction has
+        been joined (it holds per-shard overlay locks mid-swap)."""
         with self._cond:
             self._closed = True
             self._cond.notify_all()
         with self._close_lock:
             if self._worker.is_alive():
-                self._worker.join()  # drains queued queries
+                self._worker.join()  # drains queued queries and updates
+            rc, self._recompactor = self._recompactor, None
+            if rc is not None:
+                rc.stop()  # joins the maintenance thread mid-compaction too
             if close_engine and not self._engine_closed:
                 self._engine_closed = True
                 self.engine.close()

@@ -462,6 +462,111 @@ def test_service_on_the_card_ragged_multi_solo(dev, tmp_path):
             assert qr.iterations == ref.num_iterations
 
 
+# ------------------------------------------------- live mutations, ingest
+def _pack(src, dst):
+    return (np.asarray(dst, np.int64) << 32) | np.asarray(src, np.int64)
+
+
+def _mutate(src, dst, ins, dels):
+    """Deletes (every copy) first, then inserts: the delta batch semantics."""
+    tomb = np.unique(_pack(*dels))
+    keep = ~np.isin(_pack(src, dst), tomb)
+    return (np.concatenate([src[keep], np.asarray(ins[0], np.int32)]),
+            np.concatenate([dst[keep], np.asarray(ins[1], np.int32)]))
+
+
+def test_resident_service_with_updates_then_compaction(dev, tmp_path):
+    """A resident cuda service after ``apply_updates``: every answer
+    bitwise the numpy oracle on a from-scratch build of the mutated graph
+    (PPR within rtol=1e-4, atol=1e-9), no dirty shard served from the
+    resident map; after ``compact()`` every shard resident again and the
+    answers unchanged."""
+    from repro_torch.core.graph import Graph
+    from repro_torch.obs import trace
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve import GraphService
+
+    g = rmat_graph(2000, 30000, seed=61)
+    rng = np.random.default_rng(62)
+    ins = (rng.integers(0, 2000, 300), rng.integers(0, 2000, 300))
+    take = rng.choice(g.num_edges, 100, replace=False)
+    dels = (g.src[take], g.dst[take])
+    src, dst = _mutate(g.src, g.dst, ins, dels)
+    cases = [("bfs", 3), ("sssp", 7), ("wcc", 0), ("ppr", 11), ("bfs", 500)]
+    oracle = {}
+    with VSWEngine.from_graph(Graph(2000, src, dst), str(tmp_path / "o"),
+                              num_shards=6, window=256, k=16, backend="numpy",
+                              device=dev) as eng:
+        for p, v in cases:
+            kw = {} if p == "wcc" else {"source": v}
+            oracle[p, v] = eng.run(apps.get_program(p, **kw), max_iters=15).values
+    f = lambda v: np.nan_to_num(v, posinf=1e30)
+
+    def check(res):
+        for (p, v), qr in zip(cases, res):
+            if p == "ppr":
+                assert np.allclose(qr.values, oracle[p, v], rtol=1e-4, atol=1e-9)
+            else:
+                assert np.array_equal(f(qr.values), f(oracle[p, v])), (p, v)
+
+    def ask(svc):
+        with svc.submit_batch():
+            futs = [svc.submit(p, v, max_iters=15) for p, v in cases]
+        return [fut.result(timeout=600) for fut in futs]
+
+    svc = GraphService.from_graph(g, str(tmp_path / "s"), num_shards=6,
+                                  window=256, k=16, backend="cuda", device=dev,
+                                  device_resident=True, batch_shards=4,
+                                  max_lanes=8, session_entries=0)
+    try:
+        ask(svc)
+        assert sorted(svc.engine._device_shards) == list(range(6))
+        upd = svc.apply_updates(inserts=ins, deletes=dels).result(timeout=600)
+        dirty = set(upd.shards_touched)
+        assert upd.graph_version == 1 and dirty
+        with trace.tracing(Tracer()) as tr:
+            res = ask(svc)
+        check(res)
+        loads = [e["args"] for e in tr.export_chrome()["traceEvents"]
+                 if e.get("name") == "shard.load"]
+        assert loads and all(a["logical"] == (a["shard"] in dirty) for a in loads)
+        assert not any(a["from_resident"] and a["shard"] in dirty for a in loads)
+        assert not dirty & set(svc.engine._device_shards)
+        assert svc.compact().shards_compacted == len(dirty)
+        assert svc.stats()["dirty_shards"] == 0
+        svc.bump_graph_version()
+        res2 = ask(svc)
+        check(res2)
+        for a, b in zip(res, res2):
+            assert np.array_equal(f(a.values), f(b.values))
+        assert sorted(svc.engine._device_shards) == list(range(6))
+        with trace.tracing(Tracer()) as tr:
+            check(ask(svc))
+        loads = [e["args"] for e in tr.export_chrome()["traceEvents"]
+                 if e.get("name") == "shard.load"]
+        assert loads and all(a["from_resident"] for a in loads)
+    finally:
+        svc.close()
+
+
+def test_from_edge_file_on_the_card_equals_from_graph(dev, tmp_path):
+    from repro_torch.core.ingest import write_edge_file
+
+    g = rmat_graph(2000, 30000, seed=63)
+    path = str(tmp_path / "e.bin")
+    write_edge_file(path, g.src, g.dst)
+    kw = dict(num_shards=5, window=256, k=16, backend="cuda", device=dev,
+              batch_shards=2)
+    with VSWEngine.from_graph(g, str(tmp_path / "m"), **kw) as mem, \
+            VSWEngine.from_edge_file(path, str(tmp_path / "i"), chunk_edges=4096,
+                                     mem_budget_bytes=1 << 14,
+                                     num_vertices=g.num_vertices, **kw) as ing:
+        for prog in (apps.pagerank(), apps.bfs(0), apps.wcc()):
+            a, b = mem.run(prog, max_iters=10), ing.run(prog, max_iters=10)
+            assert np.array_equal(a.values, b.values)
+            assert a.num_iterations == b.num_iterations
+
+
 # --------------------------------------------------------- flash attention
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}  # tests/test_kernels.py
 #: bf16 outputs also within two bf16 ulps at the top of their range: the

@@ -36,6 +36,17 @@ import repro_torch.kernels.flash_attention.kernel
 import repro_torch.kernels.bloom.ops
 import repro_torch.kernels.bloom.kernel
 import repro_torch.kernels.bloom.ref
+import repro_torch.core.ingest
+import repro_torch.core.baselines
+import repro_torch.core.baselines.engines
+import repro_torch.core.baselines.io_model
+import repro_torch.delta
+import repro_torch.delta.edgelog
+import repro_torch.delta.overlay
+import repro_torch.delta.recompact
+import repro_torch.delta.recovery
+import repro_torch.checkpoint
+import repro_torch.checkpoint.warm_state
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 import torch
@@ -109,6 +120,25 @@ d = ell_to_device(csr_to_ell(preprocess(g, num_shards=1)[1][0], 200, window=64,
 m = torch.rand(d.num_windows * d.window)
 assert torch.equal(spmv_ops.ell_update(d, m, "min", variant="sentinel"),
                    spmv_ops.ell_update(d, m, "min"))
+import os
+from repro_torch.core.baselines import ESGEngine, prepare_baseline_store
+from repro_torch.core.ingest import write_edge_file
+from repro_torch.delta import EdgeLog, Recompactor
+with tempfile.TemporaryDirectory() as d:
+    g = rmat_graph(200, 1500, seed=4)
+    write_edge_file(os.path.join(d, "e.bin"), g.src, g.dst)
+    with GraphService.from_edge_file(os.path.join(d, "e.bin"), os.path.join(d, "s"),
+                                     num_shards=2, window=64, k=8, backend="cuda",
+                                     device="cpu", device_resident=True) as svc:
+        svc.apply_updates(inserts=([1, 2], [3, 4])).result(timeout=120)
+        assert svc.query("bfs", 1, max_iters=4).graph_version == 1
+        svc.compact()
+        svc.save_warm_state(os.path.join(d, "warm"))
+    with GraphService.from_store(os.path.join(d, "s"), device="cpu",
+                                 warm_state=os.path.join(d, "warm")) as svc:
+        assert svc.warm_restore_report["valid"]
+    store = prepare_baseline_store(g, os.path.join(d, "b"), num_shards=2)
+    assert ESGEngine(store).run(apps.pagerank(), max_iters=2).values.shape == (200,)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("isolated ok")

@@ -12,9 +12,11 @@ Inside the port (carried from ``tests/test_serve.py``): every lane equals
 the same query run alone on a single-query engine, across programs,
 backends, shard batching, retirement and backfill; the service survives
 concurrent submission.  The delta-backed pieces (updates, compaction,
-graph versions) raise until the delta port lands.
+graph versions, warm restarts) have their own tests in
+``tests/test_torch_delta.py`` and ``tests/test_torch_warm_state.py``.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -378,20 +380,27 @@ def test_shard_load_amortization(tmp_path):
 
 
 def test_unported_pieces_raise_with_their_roadmap_item(tmp_path):
+    """Only the telemetry ticker (item 7) and mesh serving (item 8) still
+    raise; item 6's pieces (updates, compaction, versions, warm restarts,
+    background compaction) run since the delta port."""
     g = rmat_graph(200, 2000, seed=51)
     svc = _mk_service(tmp_path, "np", g, backend="numpy", max_lanes=2)
     root = str(tmp_path / "np")
-    for call in (lambda: svc.apply_updates(inserts=([0], [1])), svc.compact,
-                 svc.bump_graph_version, lambda: svc.save_warm_state(root)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            call()
+    upd = svc.apply_updates(inserts=([0], [1])).result(timeout=120)
+    assert upd.graph_version == 1 and upd.edges_inserted == 1
+    assert svc.compact().shards_compacted == 1
+    assert svc.bump_graph_version() == 2
+    ckpt = svc.save_warm_state(str(tmp_path / "warm"))
+    assert os.path.basename(ckpt).startswith("warm_")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         svc.start_telemetry()
     svc.close()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        GraphService.from_store(root, device="cpu", warm_state=root)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        GraphService.from_store(root, device="cpu", auto_compact_runs=1)
+    with GraphService.from_store(root, device="cpu", backend="numpy",
+                                 warm_state=str(tmp_path / "warm")) as warm:
+        assert warm.warm_restore_report["valid"]
+    with GraphService.from_store(root, device="cpu", backend="numpy",
+                                 auto_compact_runs=1) as auto:
+        assert auto.stats()["shards_compacted"] == 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         GraphService.from_store(root, device="cpu", mesh=2)
 

@@ -1,8 +1,9 @@
 """Storage tier of the port against the reference: the same files byte for
-byte, stores open across packages, and what the port does not carry yet
-(live-mutation files, streamed ingest) refuses loudly."""
+byte, and stores open across packages — stores carrying live-mutation
+files, and the streamed ingest, included."""
 
 import os
+import shutil
 import time
 
 import numpy as np
@@ -80,6 +81,10 @@ def test_store_opens_in_other_package(tmp_path, writer):
                                       "delta_journal_00001.json",
                                       "delta_manifest.json", "delta_stage/"])
 def test_store_with_delta_files_refuses_to_open(tmp_path, artifact):
+    """A store carrying live-mutation files used to be refused; since the
+    delta port it opens with its overlay attached and recovered, exactly as
+    the reference opens it, and serves the base graph (none of these files
+    is a committed publish)."""
     g = rmat_graph(300, 2000, seed=1)
     root = tmp_path / "s"
     _write(ShardStore, root, g, num_shards=2)
@@ -87,16 +92,39 @@ def test_store_with_delta_files_refuses_to_open(tmp_path, artifact):
         os.makedirs(root / artifact)
     else:
         (root / artifact).write_bytes(b"{}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ShardStore(str(root))
-    with pytest.raises(NotImplementedError):
-        VSWEngine.from_store(str(root), backend="numpy", device="cpu")
+    shutil.copytree(root, tmp_path / "r")
+    store = ShardStore(str(root))
+    assert store.delta is not None and store.delta.version == 0
+    assert store.delta.dirty_shards() == []
+    ref = RefStore(str(tmp_path / "r"))
+    assert ref.delta is not None and ref.delta.version == 0
+    assert vars(store.delta.last_recovery) == vars(ref.delta.last_recovery)
+    assert sorted(os.listdir(root)) == sorted(os.listdir(tmp_path / "r"))
+    kw = dict(backend="numpy", selective=False)
+    with VSWEngine.from_store(str(root), device="cpu", **kw) as pt:
+        r1 = pt.run(apps.pagerank(), max_iters=3)
+    r2 = RefEngine.from_store(str(root), **kw).run(ref_apps.pagerank(),
+                                                   max_iters=3)
+    assert np.array_equal(r1.values, r2.values)
 
 
 def test_ingest_not_ported_yet(tmp_path):
+    """``ShardStore.ingest`` used to raise; since the ingest port it builds
+    the store from an edge file, the shards those of ``preprocess``."""
+    from repro_torch.core.ingest import write_edge_file
+
+    g = rmat_graph(300, 2000, seed=2)
+    path = str(tmp_path / "edges.bin")
+    write_edge_file(path, g.src, g.dst)
     store = ShardStore(str(tmp_path / "s"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        store.ingest(str(tmp_path / "edges.bin"), num_shards=2)
+    meta, stats = store.ingest(path, num_shards=2, **PARAMS)
+    assert stats.num_edges == g.num_edges and meta.num_shards == 2
+    ref_meta, ref_shards = preprocess(g, num_shards=2)
+    assert np.array_equal(meta.intervals, ref_meta.intervals)
+    for s in ref_shards:
+        got = store.load_shard(s.shard_id, "csr")
+        assert np.array_equal(got.row, s.row) and np.array_equal(got.col, s.col)
+    assert store.ell_params() == PARAMS
 
 
 def test_io_accounting_and_throttle(tmp_path):

@@ -71,8 +71,8 @@ line):
             them through the lane kernel, bitwise the same; one query per
             program equals its solo ``VSWEngine.run`` bitwise; a service
             with device_resident=False answers 4 queries (max_iters=3)
-            from the store; a ``torch`` backend service agrees (BFS/SSSP
-            bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
+            from the store; a ``torch`` backend service agrees on those 4
+            (BFS/SSSP bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
             must equal the sweeps' dispatches, and the service's metrics
             must show no conservation violation.
 8. timing   each ELL kernel, its plain version and a one-call library yardstick
@@ -136,9 +136,10 @@ line):
             and 2, every shard touched); at each version the queries are asked
             again under the tracer: no dirty shard is served from the
             resident map (``shard.load`` spans), at least one answer moved,
-            one query per program is bitwise a solo non-resident ``cuda``
-            ``VSWEngine`` opened after the publish, and a ``torch`` service
-            agrees (BFS/SSSP/WCC bitwise, PPR within rtol=1e-4, atol=1e-9).
+            two queries (BFS and SSSP at version 1, WCC and PPR at version
+            2) are bitwise a solo non-resident ``cuda`` ``VSWEngine`` opened
+            after the publish, and at version 1 a ``torch`` service agrees
+            (BFS/SSSP/WCC bitwise, PPR within rtol=1e-4, atol=1e-9).
             ``compact()`` leaves no dirty shard; after ``bump_graph_version``
             the queries are bitwise version 2's and each shard is read from
             the store once, every other load served resident.
@@ -150,6 +151,32 @@ line):
             bitwise, a new query bitwise the cold service's.  Publish,
             sweep, compaction and boot seconds are recorded (host work on
             the card's machine: dirty shards decode on the host).
+14. pulse   the load harness on the ingested copy (after ``delta``): a
+            resident ``cuda`` ``GraphService`` (batch_shards=4, max_lanes=16,
+            max_groups=2, no session cache) with the telemetry ticker
+            (0.5 s windows) and three SLOs (latency p99 under 60 s, budget
+            0.01; admission errors, 0.05; queue-wait share, 0.95) answers
+            ``benchmarks/bench_graphmp.py``'s fig_qps mix (BFS weight 2,
+            SSSP, WCC, PPR at damping 0.85; max_iters=4, cut from 6; seed
+            29).  A closed loop (8 workers, submit_batch chunks of 4, 64
+            ops, 16 of them warm-up, no mutations): every record bitwise a solo
+            resident ``cuda`` ``VSWEngine``.  An open loop under the tracer
+            (Poisson arrivals at half the closed loop's rate, 24 ops, 4
+            warm-up, 16 random inserts after every 12th op): each record at
+            the pre-stream version bitwise that solo engine; at the last
+            published version, per program the record with the fewest
+            iterations (within 40 s) bitwise a solo non-resident ``cuda``
+            engine opened after the drain (the stream's last batch rides
+            the last op, so when no record came after it the fewest-
+            iteration op is asked once more); no shard an insert touched
+            served from the resident map after its publish (``shard.load``
+            spans).  Then no conservation violation, an ``slo`` block with
+            no admission-error violation in the closed loop, the Prometheus
+            text equal to the registry's values, and every retained window
+            through JSONL and back; the lane kernels launched.  Qps,
+            latency and queue-wait percentiles, iterations an op, burn
+            rates and window counts are recorded; the trace goes to
+            ``chiprun_out/trace_pulse.json``.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Details go to
@@ -249,6 +276,13 @@ DELTA_QUERIES = 16  # 4 a program
 DELTA_ITERS = 3
 DELTA_INSERTS, DELTA_DELETES = 1 << 15, 1 << 13  # a batch; two batches
 DELTA_PREFETCH = 8  # loader threads: dirty shards decode on the host
+#: the pulse phase's mix is benchmarks/bench_graphmp.py's fig_qps (seed 29);
+#: max_iters cut from its 6: a fusion set formed with one query keeps one
+#: lane, so the open loop's queries after a publish ride dirty iterations
+#: (about 2.3 s each on the H100's machine) one at a time, and at 6 the
+#: phase took 155 s of its 150 s
+PULSE_SEED, PULSE_ITERS = 29, 4
+PULSE_SOLO_BUDGET_S = 40.0  # non-resident solo runs at the last version
 
 
 def parse_args(argv):
@@ -721,11 +755,13 @@ class Smoke:
         print("  one query per program == its solo cuda VSWEngine.run bitwise; "
               "the 4 queries from the store too")
 
+        # the torch cross-check at the from-store run's depth (cut from the
+        # 32 queries at SERVE_ITERS, about 45 s, to pay for the pulse phase)
         with GraphService.from_store(self.root, backend="torch", device_resident=True,
                                      **eng_kw, **common) as torch_svc:
-            ref = drive("torch ragged resident", torch_svc, queries, SERVE_ITERS, True)
+            ref = drive("torch ragged resident", torch_svc, short, 3, True)
         worst = 0.0
-        for (p, v), x, y in zip(queries, ragged, ref):
+        for (p, v), x, y in zip(short, from_store, ref):
             if p == "ppr":
                 err = float(np.abs(x.values - y.values).max())
                 worst = max(worst, err)
@@ -881,7 +917,9 @@ class Smoke:
                           replace=False)
         queries = [(DELTA_PROGS[i % 4], int(v)) for i, v in enumerate(srcs)]
         new_query = ("sssp", int(rng.choice(np.flatnonzero(meta.out_deg > 0))))
-        solo_idx = list(range(len(DELTA_PROGS)))  # one query a program
+        # one query a program over the two versions (cut from one a program
+        # at each version, about 47 s, to pay for the pulse phase)
+        solo_at = {1: [0, 1], 2: [2, 3]}
         svc_kw = dict(device="cuda", device_resident=True, batch_shards=4,
                       max_lanes=16, max_groups=2, prefetch_depth=DELTA_PREFETCH)
         f = lambda v: np.nan_to_num(v, posinf=1e30)
@@ -974,7 +1012,7 @@ class Smoke:
                                           prefetch_depth=DELTA_PREFETCH) as solo:
                     if solo.store.delta.version != version:
                         raise AssertionError("solo engine opened another version")
-                    for i in solo_idx:
+                    for i in solo_at[version]:
                         p, v = queries[i]
                         kw = {} if p == "wcc" else {"source": v}
                         want = solo.run(apps.get_program(p, **kw),
@@ -987,12 +1025,14 @@ class Smoke:
                                                  f"lane != solo run")
                 d["solo_s"] = time.perf_counter() - t0
                 d["solo_masked_launches"] = K.ell_partials_masked.launches
-                t0 = time.perf_counter()
-                with GraphService.from_store(root, backend="torch",
-                                             **svc_kw) as tsvc:
-                    tres, _, _ = ask(tsvc, f"version {version} torch")
-                same(res, tres, f"version {version} cuda vs torch", ppr_tol=True)
-                d["torch_s"] = time.perf_counter() - t0
+                if version == 1:  # cut at version 2 (about 23 s) for the pulse
+                    t0 = time.perf_counter()
+                    with GraphService.from_store(root, backend="torch",
+                                                 **svc_kw) as tsvc:
+                        tres, _, _ = ask(tsvc, f"version {version} torch")
+                    same(res, tres, f"version {version} cuda vs torch",
+                         ppr_tol=True)
+                    d["torch_s"] = time.perf_counter() - t0
                 d["publish_s"] = publish_s
                 d["update"] = {"inserted": upd.edges_inserted,
                                "removed": upd.edges_removed,
@@ -1002,8 +1042,9 @@ class Smoke:
                 answers[version] = res
                 print(f"    publish {publish_s:.2f} s ({upd.edges_inserted} in, "
                       f"{upd.edges_removed} out, {P} shards); no dirty shard "
-                      f"resident; {len(solo_idx)} solo runs bitwise "
-                      f"({d['solo_s']:.1f} s); torch agrees ({d['torch_s']:.1f} s)")
+                      f"resident; {len(solo_at[version])} solo runs bitwise "
+                      f"({d['solo_s']:.1f} s)" + (f"; torch agrees ({d['torch_s']:.1f}"
+                                                 f" s)" if "torch_s" in d else ""))
 
             t0 = time.perf_counter()
             cst = svc.compact()
@@ -1082,6 +1123,233 @@ class Smoke:
               f"{rep['cold_boot_s']:.2f} s): {wr['shards_warm']} shards' sources "
               f"restored, 0 reads, {wr['sessions_restored']} sessions; repeated "
               f"query cached bitwise; new query bitwise the cold service's")
+
+    def pulse(self):
+        """The load harness under telemetry on the ingested copy: see the
+        module docstring."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import ShardStore, VSWEngine, apps
+        from repro_torch.kernels.spmv_ell import kernel as K
+        from repro_torch.obs import (Tracer, error_rate_slo, jsonl_lines,
+                                     latency_slo, parse_prometheus,
+                                     prometheus_text, read_jsonl, share_slo,
+                                     trace, write_jsonl)
+        from repro_torch.serve import (GraphService, LoadGenerator, QueryClass,
+                                       Workload, oracle_kwargs)
+
+        root = self.ingest_root
+        meta = ShardStore(root).read_meta()
+        out_dir = Path(self.args.out).parent
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lanes_k = ("ell_partials_ragged", "ell_partials_lanes",
+                   "segment_combine_lanes")
+        classes = tuple(
+            QueryClass(p, weight=w, max_iters=PULSE_ITERS, params=kw)
+            for p, w, kw in (("bfs", 2.0, {}), ("sssp", 1.0, {}),
+                             ("wcc", 1.0, {}), ("ppr", 1.0, {"damping": 0.85})))
+        eng_kw = dict(backend="cuda", device="cuda", batch_shards=4,
+                      prefetch_depth=DELTA_PREFETCH)
+        f = lambda v: np.nan_to_num(v, posinf=1e30)
+        rep = self.report["pulse"] = {}
+
+        def same(r, want, label):
+            if not (np.array_equal(f(r.values), f(want.values))
+                    and (r.iterations, r.converged) == (want.num_iterations,
+                                                        want.converged)):
+                raise AssertionError(f"{label} {r.program} {r.source} at v"
+                                     f"{r.graph_version}: not bitwise solo")
+
+        def summary(lg):
+            iters = [r.iterations for r in lg.records if r.ok]
+            return {**lg.summary(), "iterations_per_op": float(np.mean(iters)),
+                    "iterations_hist": np.bincount(iters).tolist()}
+
+        for n in lanes_k:
+            getattr(K, n).launches = 0
+        svc = GraphService.from_store(root, device_resident=True, max_lanes=16,
+                                      max_groups=2, session_entries=0, **eng_kw)
+        solo = None
+        try:
+            svc.start_telemetry(interval_s=0.5, slos=[
+                latency_slo("latency_p99", threshold_s=60.0, budget=0.01),
+                error_rate_slo("admission_errors", budget=0.05),
+                share_slo("queue_wait_share", budget=0.95)])
+            t0 = time.perf_counter()
+            closed = LoadGenerator(
+                svc, Workload(classes=classes, seed=PULSE_SEED), mode="closed",
+                concurrency=8, batch_size=4, total_ops=64, warmup_ops=16).run()
+            rep["closed_s"] = time.perf_counter() - t0
+            quiesce(svc)
+            c_snap = svc.metrics_snapshot()
+            rep["closed"] = c = summary(closed)
+            rep["closed_slo"] = c_snap.get("slo")
+            if "slo" not in c_snap or any(v["slo"] == "admission_errors" for v
+                                          in c_snap["slo"]["violations"]):
+                raise AssertionError(f"closed loop: slo block {c_snap.get('slo')}")
+            if closed.completed != 48 or closed.errors or closed.rejected:
+                raise AssertionError(f"closed loop: {c}")
+            print(f"  closed loop (8 x 4, 64 ops, 16 warm-up): {c['qps']:.3f} q/s "
+                  f"({c['iterations_per_op']:.2f} iterations an op), latency p50 "
+                  f"{c['latency']['p50']:.3f} s p99 {c['latency']['p99']:.3f} s, "
+                  f"queue wait p99 {c['queue_wait']['p99']:.3f} s, share "
+                  f"{c['queue_wait_share']:.3f}, mix {c['per_class']}")
+
+            t0 = time.perf_counter()
+            solo = VSWEngine.from_store(root, device_resident=True, **eng_kw)
+            for r in closed.records:
+                same(r, solo.run(apps.get_program(r.program, **oracle_kwargs(r)),
+                                 max_iters=r.max_iters), "closed")
+                r.values = None
+            rep["closed_oracle"] = {"checked": len(closed.records),
+                                    "seconds": time.perf_counter() - t0}
+            print(f"  all {len(closed.records)} closed-loop records bitwise a solo "
+                  f"resident cuda engine ({rep['closed_oracle']['seconds']:.1f} s)")
+
+            v_pre = svc.graph_version
+            target = 0.5 * closed.qps
+            tracer = Tracer()
+            t0 = time.perf_counter()
+            with trace.tracing(tracer):
+                opened = LoadGenerator(
+                    svc, Workload(classes=classes, seed=PULSE_SEED,
+                                  update_every=12, update_batch=16),
+                    mode="open", target_qps=target, poisson=True, total_ops=24,
+                    warmup_ops=4).run()
+                quiesce(svc)
+            rep["open_s"] = time.perf_counter() - t0
+            if tracer.open_span_count() != 0:
+                raise AssertionError(f"{tracer.open_span_count()} spans left open")
+            doc = tracer.export_chrome(str(out_dir / "trace_pulse.json"))
+            rep["open"] = o = summary(opened)
+            o["versions"] = {str(v): sum(r.graph_version == v for r in opened.records)
+                             for v in sorted({r.graph_version for r in opened.records})}
+            o["trace"] = {"events": tracer.event_count(),
+                          "dropped_events": tracer.dropped_events(),
+                          "threads": tracer.thread_names()}
+            v_last = svc.graph_version
+            if (opened.completed + opened.rejected != 20 or opened.errors
+                    or opened.updates_published != 2 or v_last != v_pre + 2):
+                raise AssertionError(f"open loop: {o}")
+            print(f"  open loop (Poisson, 24 ops, 4 warm-up, 2 x 16 inserts): "
+                  f"offered {o['offered_qps']:.3f} q/s (target {target:.3f}), "
+                  f"achieved {o['qps']:.3f} q/s, latency p50 "
+                  f"{o['latency']['p50']:.3f} s p99 {o['latency']['p99']:.3f} s, "
+                  f"{o['rejected']} rejected, records by version {o['versions']}")
+
+            # no dirty shard from the resident map: a load that starts after
+            # publish k of a shard an insert batch <= k touched is a logical
+            # decode through the overlay
+            ev = doc["traceEvents"]
+            pubs = sorted(e["ts"] + e["dur"] for e in ev
+                          if e.get("name") == "service.publish")
+            loads = [e for e in ev if e.get("name") == "shard.load"]
+            batches = sorted((u for u in opened.updates if u.ok),
+                             key=lambda u: u.graph_version)
+            dirty, bad, logical = set(), [], 0
+            for k, (t_pub, u) in enumerate(zip(pubs, batches)):
+                dirty |= set((np.searchsorted(meta.intervals, u.inserts[:, 1],
+                                              side="right") - 1).tolist())
+                t_next = pubs[k + 1] if k + 1 < len(pubs) else float("inf")
+                for e in loads:
+                    a = e["args"]
+                    if t_pub <= e["ts"] < t_next and a["shard"] in dirty:
+                        logical += 1
+                        if a["from_resident"] or not a["logical"]:
+                            bad.append(a)
+            if len(pubs) != 2 or bad or not logical or (
+                    set(svc.engine._device_shards) & dirty):
+                raise AssertionError(f"open loop: a dirty shard not decoded "
+                                     f"through the overlay: {bad[:3]}")
+            o["dirty_shards"] = sorted(dirty)
+            o["dirty_loads_logical"] = logical
+
+            t0 = time.perf_counter()
+            pre = [r for r in opened.records if r.ok and r.graph_version == v_pre]
+            for r in pre:
+                same(r, solo.run(apps.get_program(r.program, **oracle_kwargs(r)),
+                                 max_iters=r.max_iters), "open")
+                r.values = None
+            solo.close()
+            solo = None
+            last = [r for r in opened.records if r.ok and r.graph_version == v_last]
+            if not last:
+                # the stream's last batch rides the schedule's last op, so
+                # every record may have been answered before it published:
+                # ask the fewest-iteration measured op again at that version
+                r = min((r for r in opened.records if r.ok and r.phase == "measure"),
+                        key=lambda r: r.iterations)
+                qr = svc.submit(r.program, r.source, max_iters=r.max_iters,
+                                **dict(r.params)).result(timeout=600)
+                if qr.graph_version != v_last:
+                    raise AssertionError(f"asked again at v{qr.graph_version}")
+                r = dataclasses.replace(r, values=qr.values, iterations=qr.iterations,
+                                        converged=qr.converged,
+                                        graph_version=qr.graph_version)
+                last, o["last_version_asked_again"] = [r], 1
+            fewest = {}
+            for r in sorted(last, key=lambda r: r.iterations):
+                fewest.setdefault(r.program, r)
+            checked = []
+            t1 = time.perf_counter()
+            with VSWEngine.from_store(root, device_resident=False, **eng_kw) as late:
+                if late.store.delta.version != svc.engine.store.delta.version:
+                    raise AssertionError("the solo engine opened another version")
+                for r in sorted(fewest.values(), key=lambda r: r.iterations):
+                    if checked and time.perf_counter() - t1 > PULSE_SOLO_BUDGET_S:
+                        break
+                    same(r, late.run(apps.get_program(r.program, **oracle_kwargs(r)),
+                                     max_iters=r.max_iters), "open")
+                    checked.append(f"{r.program} {r.source} ({r.iterations} it)")
+            for r in opened.records:
+                r.values = None
+            rep["open_oracle"] = {"pre_stream": len(pre), "last_version": checked,
+                                  "seconds": time.perf_counter() - t0}
+            print(f"  open loop: {len(pre)} records at the pre-stream version v"
+                  f"{v_pre} bitwise the solo resident engine; at the last version "
+                  f"v{v_last} bitwise a solo non-resident engine opened after the "
+                  f"drain: {checked}; no dirty shard of {sorted(dirty)} served "
+                  f"resident ({logical} logical loads)")
+
+            snap = svc.metrics_snapshot()
+            scalars = {k: v for k, v in svc.metrics.snapshot().items()
+                       if not isinstance(v, dict)}
+            prom = parse_prometheus(prometheus_text(svc.metrics))
+            if snap["conservation_violations"] or "slo" not in snap:
+                raise AssertionError(f"{snap['conservation_violations'][:3]}, "
+                                     f"slo block {'slo' in snap}")
+            differ = [k for k, v in scalars.items()
+                      if prom["graphmp_" + k.replace(".", "_")] != v]
+            if differ or prom["graphmp_query_completed"] != snap["errors"]["completed"]:
+                raise AssertionError(f"prometheus text != the snapshot: {differ[:5]}")
+            (out_dir / "pulse.prom").write_text(prometheus_text(svc.metrics))
+            ts = svc.stop_telemetry()
+            path = str(out_dir / "pulse.jsonl")
+            n = write_jsonl(path, ts)
+            back = read_jsonl(path)
+            if n != len(ts.samples()) or back != [json.loads(x)
+                                                  for x in jsonl_lines(ts)]:
+                raise AssertionError(f"jsonl: {n} lines, {len(back)} read back")
+            rep["slo"] = snap["slo"]
+            rep["timeseries"] = {**snap["timeseries"], "jsonl_windows": len(back),
+                                 "windows_after_stop": ts.num_windows}
+            rep["prometheus_samples"] = len(prom)
+            print(f"  SLOs: {snap['slo']['evaluations']} evaluations, violations "
+                  f"{[v['slo'] for v in snap['slo']['violations']]}; "
+                  f"{json.dumps({o_['name']: o_['burn_rates'] for o_ in snap['slo']['objectives']})}")
+            print(f"  {len(back)} windows round-trip through JSONL, {len(prom)} "
+                  f"Prometheus samples equal to the registry, no conservation "
+                  f"violation")
+        finally:
+            if solo is not None:
+                solo.close()
+            svc.close()
+        launches = {n: getattr(K, n).launches for n in lanes_k}
+        rep["launches"] = launches
+        if not (launches["ell_partials_ragged"] and launches["segment_combine_lanes"]):
+            raise AssertionError(f"the pulse ran no lane kernel: {launches}")
+        print(f"  lane kernel launches during the phase (solo runs' single-lane "
+              f"kernels aside): {launches}")
 
     @staticmethod
     def partials_bytes(torch, idxs, masks, tws, window, tr):
@@ -2046,6 +2314,25 @@ def settle(svc, sweeps0, timeout=120.0):
     return svc.stats()["sweeps"] - sweeps0
 
 
+def quiesce(svc, timeout=120.0, still_s=1.0):
+    """Wait until the service's worker has booked every fusion set it ran:
+    nothing pending and the count of booked sets unchanged for ``still_s``
+    (a query's future resolves inside its sweep, before the sweep books its
+    stats: see ``settle``)."""
+    deadline = time.monotonic() + timeout
+    last, since = None, time.monotonic()
+    while time.monotonic() < deadline:
+        st = svc.stats()
+        key = (st["sweeps"], st["pending"], st["updates_pending"])
+        if key != last:
+            last, since = key, time.monotonic()
+        elif not (st["pending"] or st["updates_pending"]) and (
+                time.monotonic() - since >= still_s):
+            return st["sweeps"]
+        time.sleep(0.01)
+    raise AssertionError(f"the service did not quiesce: {last}")
+
+
 def record_cache_attention(run):
     """Run ``run()`` with the model's cache attention recorded: for each
     call (one a layer of a decode step) copies of its q, k/v caches, the
@@ -2163,6 +2450,7 @@ def main(argv=None) -> int:
             smoke.phase("ingest", smoke.ingest)
             if "ingest" not in smoke.failures:
                 smoke.phase("delta", smoke.delta)
+                smoke.phase("pulse", smoke.pulse)
     if smoke.serve_engine is not None:
         smoke.serve_engine.close()
     smoke.report["total_s"] = time.perf_counter() - t_all

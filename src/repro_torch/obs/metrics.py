@@ -16,13 +16,15 @@ ExecStats          ragged_dispatches <= batches <= dispatches,
                    sum(group_lanes.values()) == ragged_lanes
 IterStats          counters non-negative
 SweepIterStats     ragged_dispatches <= batches <= dispatches
+IngestStats        spill + shard + meta bytes == bytes_written_total,
+                   spill bytes read back exactly once
+CompactionStats    counters non-negative
 =================  ======================================================
 
-The mesh identities of the reference's registry (per-device shards,
-dispatches and bytes) and its ingest/compaction/collective adapters wait
-for the mesh and delta paths (ROADMAP Queue 1 items 6 and 8).  Adapters
-dispatch on ``type(obj).__name__`` so this module imports nothing of the
-engine.
+The reference's ``CollectiveStats`` adapter and its mesh identities
+(per-device shards, dispatches and bytes) come with the multi-device port
+(ROADMAP Queue 1 item 8).  Adapters dispatch on ``type(obj).__name__`` so
+this module imports nothing of the engine.
 
 Histograms are fixed log-bucket streaming estimators: ~7% bucket growth
 gives ≲3.5% relative quantile error at O(1) memory, enough for the
@@ -578,6 +580,48 @@ def _ingest_sweep_iter(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> N
     )
 
 
+def _ingest_ingest(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:
+    p = prefix or "ingest"
+    reg._bump(
+        p,
+        s,
+        (
+            "num_edges",
+            "spills",
+            "runs",
+            "spill_bytes_written",
+            "spill_bytes_read",
+            "shard_bytes_written",
+            "meta_bytes_written",
+        ),
+    )
+    reg.check(
+        f"{p}: spill+shard+meta == bytes_written_total",
+        s.spill_bytes_written + s.shard_bytes_written + s.meta_bytes_written,
+        s.bytes_written_total,
+    )
+    reg.check(
+        f"{p}: spill bytes read back exactly once",
+        s.spill_bytes_read,
+        s.spill_bytes_written,
+    )
+
+
+def _ingest_compaction(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:
+    p = prefix or "compact"
+    reg._bump(
+        p,
+        s,
+        (
+            "shards_compacted",
+            "runs_absorbed",
+            "inserts_applied",
+            "tombstones_applied",
+            "shard_bytes_written",
+        ),
+    )
+
+
 _ADAPTERS: Dict[str, Callable[[MetricsRegistry, Any, Optional[str]], None]] = {
     "IOStats": _ingest_io,
     "CacheStats": _ingest_cache,
@@ -585,4 +629,6 @@ _ADAPTERS: Dict[str, Callable[[MetricsRegistry, Any, Optional[str]], None]] = {
     "ExecStats": _ingest_exec,
     "IterStats": _ingest_iter,
     "SweepIterStats": _ingest_sweep_iter,
+    "IngestStats": _ingest_ingest,
+    "CompactionStats": _ingest_compaction,
 }

@@ -6,7 +6,9 @@ The storage, pipeline and executor layers wrap their work in
 site is one global read and a ``None`` check.  With a tracer installed the
 spans land in a per-thread ring (one writer thread per ring, so no lock on
 the record path) and :meth:`Tracer.export_chrome` renders them as
-Chrome-trace / Perfetto JSON, one lane per thread.
+Chrome-trace / Perfetto JSON, one lane per thread.  ``counter()`` and
+``instant()`` follow the same discipline: with no tracer installed they
+return after one global read.
 
 Span names used by the engine::
 
@@ -28,9 +30,9 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-__all__ = ["NULL_SPAN", "Span", "Tracer", "active", "dropped_events",
-           "install", "instant", "publish_drops", "span", "tracing",
-           "uninstall"]
+__all__ = ["NULL_SPAN", "Span", "Tracer", "active", "counter",
+           "dropped_events", "install", "instant", "publish_drops", "span",
+           "tracing", "uninstall"]
 
 
 class _NullSpan:
@@ -66,8 +68,15 @@ def span(name: str, **attrs: Any) -> Any:
     return t.span(name, **attrs)
 
 
+def counter(name: str, value: float, **attrs: Any) -> None:
+    """Record a counter sample ("C" event) if tracing is enabled."""
+    t = _ACTIVE
+    if t is not None:
+        t.counter(name, value, **attrs)
+
+
 def instant(name: str, **attrs: Any) -> None:
-    """Record an instant event if tracing is enabled."""
+    """Record an instant event ("i") if tracing is enabled."""
     t = _ACTIVE
     if t is not None:
         t.instant(name, **attrs)
@@ -179,13 +188,14 @@ class Span:
         self._ring.depth -= 1
         if exc is not None:
             self.set(error=repr(exc))
-        self._ring.push((self._name, self._t0, dur, self._attrs))
+        self._ring.push(("X", self._name, self._t0, dur, self._attrs))
         return False
 
 
 class Tracer:
-    """Collects spans into per-thread rings of ``capacity`` events each;
-    the oldest events are dropped beyond that."""
+    """Collects spans, counters and instants into per-thread rings of
+    ``capacity`` events each; the oldest events are dropped beyond that
+    (the drop count is reported in the export's ``otherData``)."""
 
     def __init__(self, capacity: int = 1 << 16):
         if capacity <= 0:
@@ -209,13 +219,29 @@ class Tracer:
     def span(self, name: str, **attrs: Any) -> Span:
         return Span(self._ring(), name, attrs or None)
 
+    def counter(self, name: str, value: float, **attrs: Any) -> None:
+        self._ring().push(("C", name, time.perf_counter_ns(), value,
+                           attrs or None))
+
     def instant(self, name: str, **attrs: Any) -> None:
-        self._ring().push((name, time.perf_counter_ns(), None, attrs or None))
+        self._ring().push(("i", name, time.perf_counter_ns(), 0,
+                           attrs or None))
 
     def open_span_count(self) -> int:
         """Number of spans currently entered but not yet exited."""
         with self._reg_lock:
             return sum(r.depth for r in self._rings)
+
+    def event_count(self) -> int:
+        """Events currently held across all rings."""
+        with self._reg_lock:
+            return sum(min(r.n, r.capacity) for r in self._rings)
+
+    def thread_names(self) -> List[str]:
+        """The name of each thread that recorded an event, in first-event
+        order."""
+        with self._reg_lock:
+            return [r.name for r in self._rings]
 
     def dropped_events(self) -> int:
         """Oldest-event drops across all rings."""
@@ -223,8 +249,9 @@ class Tracer:
             return sum(max(0, r.n - r.capacity) for r in self._rings)
 
     def export_chrome(self, path: Optional[str] = None) -> Dict[str, Any]:
-        """Render all recorded spans as a Chrome-trace JSON object (and
-        write it to ``path`` when given)."""
+        """Render all recorded events as a Chrome-trace JSON object (and
+        write it to ``path`` when given).  Loadable by Perfetto or
+        ``chrome://tracing``."""
         pid = os.getpid()
         with self._reg_lock:
             rings = list(self._rings)
@@ -236,24 +263,39 @@ class Tracer:
                            "args": {"name": ring.name}})
             evs, dropped = ring.snapshot()
             dropped_total += dropped
-            for name, t_ns, dur, attrs in evs:
+            for ph, name, t_ns, dur_or_val, attrs in evs:
                 rec: Dict[str, Any] = {
-                    "ph": "X", "pid": pid, "tid": ring.tid, "name": name,
+                    "ph": ph, "pid": pid, "tid": ring.tid, "name": name,
                     "ts": (t_ns - self.epoch_ns) / 1000.0,
                 }
-                if dur is None:  # an instant event
-                    rec.update(ph="i", s="t")
-                else:
-                    rec["dur"] = dur / 1000.0
-                if attrs:
-                    rec["args"] = _jsonable(attrs)
+                if ph == "X":
+                    rec["dur"] = dur_or_val / 1000.0
+                    if attrs:
+                        rec["args"] = _jsonable(attrs)
+                elif ph == "C":
+                    args = {"value": dur_or_val}
+                    if attrs:
+                        args.update(_jsonable(attrs))
+                    rec["args"] = args
+                else:  # an instant event
+                    rec["s"] = "t"
+                    if attrs:
+                        rec["args"] = _jsonable(attrs)
                 events.append(rec)
         out = {
             "traceEvents": events,
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_events": dropped_total,
+            "otherData": {"tracer": "graphscope",
+                          "dropped_events": dropped_total,
                           "ring_capacity": self.capacity},
         }
+        if dropped_total > 0:
+            # A truncated timeline is misleading evidence: say so.
+            out["otherData"]["warning"] = (
+                f"ring overflow: {dropped_total} oldest events dropped "
+                f"(per-thread capacity {self.capacity}); the timeline is "
+                f"truncated at its start — raise Tracer(capacity=...) to "
+                f"capture the full run")
         if path is not None:
             with open(path, "w") as f:
                 json.dump(out, f)

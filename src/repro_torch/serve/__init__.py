@@ -21,13 +21,26 @@ session     :class:`~repro_torch.serve.session.SessionCache` — LRU result
 service     :class:`~repro_torch.serve.service.GraphService` — request
             queue, admission by lane budget, worker thread, per-request
             latency / I/O attribution.
+loadgen     :class:`~repro_torch.serve.loadgen.LoadGenerator` — closed- and
+            open-loop replay of a seeded :class:`~repro_torch.serve.
+            loadgen.Workload` (query mix + mutation stream) against a live
+            service, with a bitwise-oracle record of every answer.
 ==========  ===============================================================
 
-The load generator waits for ROADMAP Queue 1 item 7, mesh sweeps for
-item 8.
+Mesh sweeps wait for the multi-device port (ROADMAP Queue 1 item 8).
 """
 
 from .batcher import LaneBatcher, pad_lanes
+from .loadgen import (
+    LoadGenerator,
+    LoadReport,
+    OpRecord,
+    QueryClass,
+    UpdateRecord,
+    Workload,
+    edge_state_at_version,
+    oracle_kwargs,
+)
 from .service import GraphService, QueryResult, ServiceOverloaded, UpdateResult
 from .session import SessionCache
 from .sweep import (
@@ -55,4 +68,12 @@ __all__ = [
     "LaneResult",
     "MeshSweep",
     "SweepIterStats",
+    "LoadGenerator",
+    "LoadReport",
+    "OpRecord",
+    "QueryClass",
+    "UpdateRecord",
+    "Workload",
+    "edge_state_at_version",
+    "oracle_kwargs",
 ]

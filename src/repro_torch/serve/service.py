@@ -26,9 +26,11 @@ delta runs (:mod:`repro_torch.delta`); a shard with pending runs is decoded
 on the host through the overlay and never served from the resident device
 copy until compaction folds the runs into its base.  Warm restarts
 (``from_store(warm_state=)``, :meth:`GraphService.save_warm_state`) use
-:mod:`repro_torch.checkpoint.warm_state`.  The telemetry ticker waits for
-the observability port (ROADMAP Queue 1 item 7) and mesh serving for the
-multi-device port (item 8): each raises ``NotImplementedError``.
+:mod:`repro_torch.checkpoint.warm_state`.  :meth:`GraphService.
+start_telemetry` runs a ticker that closes time-series windows of the
+service's metrics and evaluates SLO burn rates (:mod:`repro_torch.obs`).
+Mesh serving waits for the multi-device port (ROADMAP Queue 1 item 8):
+``mesh=`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,12 +58,6 @@ from .session import SessionCache
 from .sweep import FusedSweep, LaneResult, LaneSeed
 
 __all__ = ["GraphService", "QueryResult", "ServiceOverloaded", "UpdateResult"]
-
-_TELEMETRY = "ROADMAP Queue 1 item 7"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is {item}, not ported yet")
 
 
 class ServiceOverloaded(RuntimeError):
@@ -189,6 +185,11 @@ class GraphService:
         self.metrics.counter("query.completed")
         self.metrics.counter("query.rejected")
         self.metrics.counter("shard.load_error")
+        # The telemetry ticker (``start_telemetry``): a cadenced thread
+        # closing TimeSeriesRegistry windows + optional SLO evaluation.
+        self._telemetry = None  # (ts, monitor, thread, stop_event)
+        self._telemetry_lock = threading.Lock()
+        # Window marks for ``metrics_snapshot(window=True)``.
         self._window_marks: Dict[str, Any] = {}
         #: the per-iteration stats of the last fusion set the worker ran
         self.last_sweep_stats: List[Any] = []
@@ -489,9 +490,77 @@ class GraphService:
             n += 1
         return n
 
-    def start_telemetry(self, **kwargs):
-        """The telemetry ticker: waits for the observability port."""
-        raise _not_ported("start_telemetry (time series and SLOs)", _TELEMETRY)
+    # ----------------------------------------------------------- telemetry
+    def start_telemetry(self, *, interval_s: float = 0.25,
+                        capacity: int = 2048, slos=None, windows=None):
+        """Start the telemetry cadence: a daemon ticker that closes one
+        :class:`~repro_torch.obs.timeseries.TimeSeriesRegistry` window every
+        ``interval_s`` seconds (and mirrors tracer ring drops into the
+        registry).  Pass ``slos`` (a list of :class:`~repro_torch.obs.slo.
+        SLO`) to also evaluate multi-window burn rates each tick; violations
+        then appear in ``metrics_snapshot()["slo"]``.
+
+        Returns the :class:`TimeSeriesRegistry`; the optional monitor is at
+        :attr:`slo_monitor`.  Starting twice raises (stop first), so two
+        tickers can never double-diff the counter marks.
+        """
+        from ..obs.slo import SLOMonitor
+        from ..obs.timeseries import TimeSeriesRegistry
+
+        with self._telemetry_lock:
+            if self._telemetry is not None:
+                raise RuntimeError("telemetry already running")
+            ts = TimeSeriesRegistry(self.metrics, capacity=capacity,
+                                    interval_s=interval_s)
+            monitor = None
+            if slos:
+                kw = {"windows": windows} if windows is not None else {}
+                monitor = SLOMonitor(ts, slos, **kw)
+            stop = threading.Event()
+
+            def loop() -> None:
+                while not stop.wait(interval_s):
+                    trace.publish_drops(self.metrics)
+                    ts.tick()
+                    if monitor is not None:
+                        monitor.evaluate()
+
+            th = threading.Thread(target=loop, name="graphpulse-ticker",
+                                  daemon=True)
+            self._telemetry = (ts, monitor, th, stop)
+            th.start()
+            return ts
+
+    def stop_telemetry(self, *, final_tick: bool = True):
+        """Stop the telemetry ticker (no-op when not running); optionally
+        close one last window so the run's tail isn't lost to cadence
+        truncation.  Returns the (now quiescent) TimeSeriesRegistry or
+        None."""
+        with self._telemetry_lock:
+            tel, self._telemetry = self._telemetry, None
+        if tel is None:
+            return None
+        ts, monitor, th, stop = tel
+        stop.set()
+        th.join()
+        if final_tick:
+            trace.publish_drops(self.metrics)
+            ts.tick()
+            if monitor is not None:
+                monitor.evaluate()
+        return ts
+
+    @property
+    def timeseries(self):
+        """The live TimeSeriesRegistry, or None when telemetry is off."""
+        with self._telemetry_lock:
+            return self._telemetry[0] if self._telemetry else None
+
+    @property
+    def slo_monitor(self):
+        """The live SLOMonitor, or None (telemetry off / no SLOs given)."""
+        with self._telemetry_lock:
+            return self._telemetry[1] if self._telemetry else None
 
     # --------------------------------------------------------- worker loop
     def _serve_loop(self) -> None:
@@ -645,6 +714,9 @@ class GraphService:
         every conservation identity declared by the sweeps ingested so far
         (empty list = all conserved).  ``window=True`` reports each
         histogram over the records since the previous windowed snapshot.
+        While :meth:`start_telemetry` is active, ``timeseries`` and ``slo``
+        blocks report ring occupancy and the SLO monitor's burn rates and
+        violation records.
         """
         trace.publish_drops(self.metrics)
 
@@ -656,7 +728,7 @@ class GraphService:
             self._window_marks[name] = hist.state()
             return win.percentiles()
 
-        return {
+        out: Dict[str, Any] = {
             "query_latency_s": block("query.latency_s"),
             "queue_wait_s": block("query.queue_wait_s"),
             "sweep_s": block("query.sweep_s"),
@@ -677,16 +749,31 @@ class GraphService:
                 strict=False),
             "service": self.stats(),
         }
+        with self._telemetry_lock:
+            tel = self._telemetry
+        if tel is not None:
+            ts, monitor = tel[0], tel[1]
+            out["timeseries"] = {
+                "windows": ts.num_windows,
+                "retained": len(ts.samples()),
+                "dropped_samples": ts.dropped_samples,
+                "interval_s": ts.interval_s,
+            }
+            if monitor is not None:
+                out["slo"] = monitor.snapshot()
+        return out
 
     # ----------------------------------------------------------- lifecycle
     def close(self, *, close_engine: bool = True) -> None:
         """Drain the queue, stop the worker, release the engine.
         Idempotent and thread-safe: every caller returns only once the
-        serve worker has exited AND any in-flight background compaction has
-        been joined (it holds per-shard overlay locks mid-swap)."""
+        telemetry ticker and the serve worker have exited AND any in-flight
+        background compaction has been joined (it holds per-shard overlay
+        locks mid-swap)."""
         with self._cond:
             self._closed = True
             self._cond.notify_all()
+        self.stop_telemetry(final_tick=False)
         with self._close_lock:
             if self._worker.is_alive():
                 self._worker.join()  # drains queued queries and updates

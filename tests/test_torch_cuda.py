@@ -567,6 +567,55 @@ def test_from_edge_file_on_the_card_equals_from_graph(dev, tmp_path):
             assert a.num_iterations == b.num_iterations
 
 
+def test_pulse_closed_loop_on_a_resident_service_is_bitwise_solo(dev, tmp_path):
+    """The load harness's closed loop against a card-resident ``cuda``
+    service with the telemetry ticker and SLOs on: every record bitwise a
+    solo resident ``cuda`` engine on the same store, the lane kernels
+    launched, no conservation violation, the exports parse."""
+    from repro_torch.obs import (error_rate_slo, latency_slo, parse_prometheus,
+                                 prometheus_text)
+    from repro_torch.serve import (GraphService, LoadGenerator, QueryClass,
+                                   Workload, oracle_kwargs)
+
+    g = rmat_graph(4000, 60000, seed=64)
+    root = str(tmp_path / "s")
+    kw = dict(backend="cuda", device=dev, device_resident=True, batch_shards=4)
+    svc = GraphService.from_graph(g, root, num_shards=6, window=256, k=16,
+                                  max_lanes=16, max_groups=2,
+                                  session_entries=0, **kw)
+    wl = Workload(classes=(QueryClass("bfs", weight=2.0, max_iters=6),
+                           QueryClass("sssp", max_iters=6),
+                           QueryClass("wcc", max_iters=6),
+                           QueryClass("ppr", max_iters=6,
+                                      params={"damping": 0.85})), seed=29)
+    lanes = (K.ell_partials_ragged.launches, K.segment_combine_lanes.launches)
+    try:
+        svc.start_telemetry(interval_s=0.05, slos=[
+            latency_slo("latency_p99", threshold_s=60.0, budget=0.01),
+            error_rate_slo("admission_errors", budget=0.05)])
+        rep = LoadGenerator(svc, wl, mode="closed", concurrency=8, batch_size=4,
+                            total_ops=48, warmup_ops=8).run()
+        ts = svc.stop_telemetry()
+        snap = svc.metrics_snapshot()
+        prom = parse_prometheus(prometheus_text(svc.metrics))
+    finally:
+        svc.close()
+    assert rep.completed == 40 and rep.errors == 0 and ts.num_windows >= 1
+    assert K.ell_partials_ragged.launches > lanes[0]
+    assert K.segment_combine_lanes.launches > lanes[1]
+    assert snap["conservation_violations"] == []
+    assert prom["graphmp_query_completed"] == 48.0
+    f = lambda v: np.nan_to_num(v, posinf=1e30)
+    with VSWEngine.from_store(root, **kw) as solo:
+        for r in rep.records:
+            want = solo.run(apps.get_program(r.program, **oracle_kwargs(r)),
+                            max_iters=r.max_iters)
+            assert r.ok and np.array_equal(f(r.values), f(want.values)), (
+                r.program, r.source)
+            assert (r.iterations, r.converged) == (want.num_iterations,
+                                                   want.converged)
+
+
 # --------------------------------------------------------- flash attention
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}  # tests/test_kernels.py
 #: bf16 outputs also within two bf16 ulps at the top of their range: the

@@ -380,9 +380,10 @@ def test_shard_load_amortization(tmp_path):
 
 
 def test_unported_pieces_raise_with_their_roadmap_item(tmp_path):
-    """Only the telemetry ticker (item 7) and mesh serving (item 8) still
-    raise; item 6's pieces (updates, compaction, versions, warm restarts,
-    background compaction) run since the delta port."""
+    """Only mesh serving (item 8) still raises; item 6's pieces (updates,
+    compaction, versions, warm restarts, background compaction) run since
+    the delta port, and item 7's telemetry ticker since the observability
+    port (``tests/test_torch_pulse.py`` holds it to the reference)."""
     g = rmat_graph(200, 2000, seed=51)
     svc = _mk_service(tmp_path, "np", g, backend="numpy", max_lanes=2)
     root = str(tmp_path / "np")
@@ -392,8 +393,10 @@ def test_unported_pieces_raise_with_their_roadmap_item(tmp_path):
     assert svc.bump_graph_version() == 2
     ckpt = svc.save_warm_state(str(tmp_path / "warm"))
     assert os.path.basename(ckpt).startswith("warm_")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        svc.start_telemetry()
+    ts = svc.start_telemetry(interval_s=0.05)
+    assert svc.timeseries is ts
+    assert svc.stop_telemetry() is ts and svc.timeseries is None
+    assert ts.num_windows >= 1  # the final tick closed a window
     svc.close()
     with GraphService.from_store(root, device="cpu", backend="numpy",
                                  warm_state=str(tmp_path / "warm")) as warm:

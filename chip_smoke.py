@@ -58,9 +58,10 @@ line):
 6. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
             prefetch_depth=2, cache_bytes=1 GiB: PageRank (5 iterations),
-            SSSP and WCC on backend ``cuda``, once with
-            device_resident=False and once with True, each held against
-            backend ``torch`` on the card (min/max bitwise, PageRank within
+            SSSP and WCC (to convergence) on backend ``cuda`` with
+            device_resident=True, and all three at 3 iterations with
+            device_resident=False, each held against backend ``torch`` on
+            the card at the same depth (min/max bitwise, PageRank within
             rtol=1e-4, atol=1e-9).  The kernels' launch counters must equal
             the executor's dispatches.
 7. serve    the serving path on the same store: ``GraphService`` with
@@ -75,7 +76,26 @@ line):
             (BFS/SSSP bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
             must equal the sweeps' dispatches, and the service's metrics
             must show no conservation violation.
-8. timing   each ELL kernel, its plain version and a one-call library yardstick
+8. mesh     the multi-device path at one slot (one H100) on the same
+            store: a resident ``cuda`` engine booted with ``mesh=1``
+            (batch_shards=4) runs PageRank, SSSP and WCC (3 iterations
+            each), each bitwise the single-device engine with the same
+            settings, with sum(device_shards) == shards_processed and
+            sum(device_bytes) == bytes_read every iteration and the single-
+            lane kernels' launches equal to the dispatches (one launch a
+            flush per slot holding shards: ``MeshLaneExecutor``'s rule); a
+            ``GraphService`` on that engine answers 8 BFS/SSSP/WCC/PPR
+            queries (max_iters=5), each bitwise its solo single-device run,
+            mesh_devices 1, no conservation violation, the lane kernels'
+            launches equal to the dispatches; ``mesh=`` one more than the
+            cards raises the uniform error.  Then ``run_distributed`` on a
+            one-rank NCCL group (``file://`` rendezvous) over R-MAT 2^18
+            vertices / 2^22 edges (seed 7): PageRank 10 iterations (within
+            rtol=1e-4, atol=1e-9 of a single-device resident ``cuda``
+            engine, one segment_combine launch a superstep), SSSP and WCC to
+            convergence (bitwise, the same iterations).  Per-iteration
+            times of both engines and each superstep's time are printed.
+9. timing   each ELL kernel, its plain version and a one-call library yardstick
             timed with CUDA events, L2 flushed before each call, on the
             main path's first batch of shards (the lane kernels at 16 and
             32 lanes), beside its bound: the bytes the function must move
@@ -89,7 +109,7 @@ line):
             recorded beside the new ones.  The window staging probe times
             the masked and the lanes kernels with every tile gathering
             from window 0, which stays in L2.
-9. sentinel ell_update(variant="sentinel") on the main path's first batch
+10. sentinel ell_update(variant="sentinel") on the main path's first batch
             (shards 0-3) with PageRank's first messages, sum/min/max: its
             3 launches counted; partials and update bitwise the masked
             ones for each combine; against the plain version min/max
@@ -97,7 +117,7 @@ line):
             messages are below 2^-21: a fixed atol would hold nothing);
             timed beside the masked kernel, its bound the whole index
             plane, the gathered message sectors, tile_window and the output.
-10. bloom   one BloomFilter32 per shard over the scheduler's exact source
+11. bloom   one BloomFilter32 per shard over the scheduler's exact source
             sets; active sets of 2^10 and 2^16 random vertices and every
             vertex: contains per filter and any_active_shards (48 + 3
             launches counted) bitwise against the host filters, no shard
@@ -112,13 +132,13 @@ line):
             turn on one stream; and contains on one filter at each set
             size beside its bound (ids, touched sectors and bytes out, or
             its operations).
-11. trace   (diagnostic: a profiler error leaves "not measured" and does
+12. trace   (diagnostic: a profiler error leaves "not measured" and does
             not fail the run) one resident PageRank run of 3 iterations and
             one resident fusion set of 32 queries (max_iters=5) under
             torch.profiler: each kernel's device time as the engine
             launches it, beside the engine's kernel_s, and the card's busy
             share of the run.
-12. ingest  the main phase's graph written as a binary edge file
+13. ingest  the main phase's graph written as a binary edge file
             (``write_edge_file``, 8 B an edge) and stream-ingested
             (``ShardStore.ingest``, the default 64 MiB spill budget, one
             finalize worker) into a second store by a child process: every
@@ -128,9 +148,9 @@ line):
             finalize seconds (trace spans), ``IngestStats`` and the child's
             peak RSS are recorded.  npz members carry their write time, so
             the script pins the zip clock for every store it writes.
-13. delta   live mutations on the ingested copy: a resident ``cuda``
+14. delta   live mutations on the ingested copy: a resident ``cuda``
             ``GraphService`` (batch_shards=4, max_lanes=16, max_groups=2)
-            answers 16 BFS/SSSP/WCC/PPR queries (max_iters=3; version 0),
+            answers 16 BFS/SSSP/WCC/PPR queries (max_iters=2; version 0),
             then two batches of 2^15 uniform inserts and 2^13 deletes of
             existing edges publish through ``apply_updates`` (versions 1
             and 2, every shard touched); at each version the queries are asked
@@ -151,7 +171,7 @@ line):
             bitwise, a new query bitwise the cold service's.  Publish,
             sweep, compaction and boot seconds are recorded (host work on
             the card's machine: dirty shards decode on the host).
-14. pulse   the load harness on the ingested copy (after ``delta``): a
+15. pulse   the load harness on the ingested copy (after ``delta``): a
             resident ``cuda`` ``GraphService`` (batch_shards=4, max_lanes=16,
             max_groups=2, no session cache) with the telemetry ticker
             (0.5 s windows) and three SLOs (latency p99 under 60 s, budget
@@ -189,6 +209,7 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import json
 import subprocess
 import sys
@@ -270,10 +291,10 @@ LM_RTOL = LM_ATOL = 2e-2
 ZIP_CLOCK = 1_700_000_000.0
 DELTA_PROGS = ("bfs", "sssp", "wcc", "ppr")
 DELTA_QUERIES = 16  # 4 a program
-#: cut from 5: every dirty sweep iteration decodes all 16 shards on the
-#: host (about 4 s on the H100's machine), and at 5 the phase took 400 s
-#: of the smoke's time limit
-DELTA_ITERS = 3
+#: cut from 5, then from 3 to pay for the mesh phase: every dirty sweep
+#: iteration decodes all 16 shards on the host (about 4 s on the H100's
+#: machine), and at 5 the phase took 400 s of the smoke's time limit
+DELTA_ITERS = 2
 DELTA_INSERTS, DELTA_DELETES = 1 << 15, 1 << 13  # a batch; two batches
 DELTA_PREFETCH = 8  # loader threads: dirty shards decode on the host
 #: the pulse phase's mix is benchmarks/bench_graphmp.py's fig_qps (seed 29);
@@ -283,6 +304,15 @@ DELTA_PREFETCH = 8  # loader threads: dirty shards decode on the host
 #: phase took 155 s of its 150 s
 PULSE_SEED, PULSE_ITERS = 29, 4
 PULSE_SOLO_BUDGET_S = 40.0  # non-resident solo runs at the last version
+#: the main phase's non-resident cuda run (and its torch cross-check), cut
+#: from PageRank 5 and SSSP/WCC to convergence (6 iterations, about 3.7 s
+#: each on the H100's machine) to pay for the mesh phase
+MAIN_STORE_ITERS = 3
+MESH_ITERS = 3  # the mesh phase's engine runs: PageRank, SSSP, WCC
+MESH_QUERIES, MESH_QUERY_ITERS = 8, 5  # 2 each of BFS/SSSP/WCC/PPR
+#: the superstep's graph: R-MAT 2^18 vertices, 2^22 edges, seed 7
+DIST_VERTICES, DIST_EDGES, DIST_SEED = 1 << 18, 1 << 22, 7
+DIST_PR_ITERS, DIST_MAX_ITERS = 10, 200
 
 
 def parse_args(argv):
@@ -577,14 +607,19 @@ class Smoke:
         programs = [("pagerank", apps.pagerank, 5), ("sssp", lambda: apps.sssp(0), 30),
                     ("wcc", apps.wcc, 30)]
         values = {}
-        runs = [("cuda", False), ("cuda", True), ("torch", True)]
-        for backend, resident in runs:
+        # (backend, resident, depths): the resident runs at each program's
+        # depth, the non-resident one at MAIN_STORE_ITERS; torch at both
+        runs = [("cuda", False, (MAIN_STORE_ITERS,)), ("cuda", True, (None,)),
+                ("torch", True, (None, MAIN_STORE_ITERS))]
+        for backend, resident, depths in runs:
             eng = VSWEngine.from_store(
                 root, backend=backend, device="cuda", batch_shards=4,
                 prefetch_depth=2, cache_bytes=1 << 30,
                 device_resident=resident)
             with eng:
-                for name, prog, iters in programs:
+                for (name, prog, full), depth in itertools.product(programs,
+                                                                   depths):
+                    iters = depth or full
                     if backend == "cuda":
                         K.ell_partials_masked.launches = 0
                         K.segment_combine.launches = 0
@@ -595,8 +630,9 @@ class Smoke:
                     dispatches = sum(i.dispatches for i in r.iterations)
                     launches = (K.ell_partials_masked.launches,
                                 K.segment_combine.launches)
-                    key = f"{backend} resident={resident} {name}"
-                    values[backend, resident, name] = r.values
+                    key = f"{backend} resident={resident} {name}" + (
+                        f" max_iters={depth}" if depth else "")
+                    values[backend, resident, name, depth] = r.values
                     self.report["main"]["runs"][key] = {
                         "wall_s": wall, "iterations": len(r.iterations),
                         "converged": r.converged, "dispatches": dispatches,
@@ -630,12 +666,13 @@ class Smoke:
                             for kname, n in zip(self.launches, launches):
                                 self.launches[kname] += n
         f = lambda v: np.nan_to_num(v, posinf=1e30)
-        for resident in (False, True):
+        for resident, depth in ((False, MAIN_STORE_ITERS), (True, None)):
             for name in ("sssp", "wcc"):
-                if not np.array_equal(f(values["cuda", resident, name]),
-                                      f(values["torch", True, name])):
+                if not np.array_equal(f(values["cuda", resident, name, depth]),
+                                      f(values["torch", True, name, depth])):
                     raise AssertionError(f"{name} resident={resident}: cuda != torch")
-            x, y = values["cuda", resident, "pagerank"], values["torch", True, "pagerank"]
+            x = values["cuda", resident, "pagerank", depth]
+            y = values["torch", True, "pagerank", depth]
             err = float(np.abs(x - y).max())
             if not np.allclose(x, y, rtol=PR_RTOL, atol=PR_ATOL):
                 raise AssertionError(f"pagerank resident={resident}: max err {err}")
@@ -741,17 +778,19 @@ class Smoke:
                                             device_resident=False, **eng_kw, **common)
         with store_svc:
             from_store = drive("cuda ragged from store", store_svc, short, 3, True)
-        with VSWEngine.from_store(self.root, backend="cuda", batch_shards=4,
-                                  device_resident=True, **eng_kw) as solo:
-            checks = [(i, SERVE_ITERS, ragged[i]) for i in range(3)]
-            checks += [(i, 3, r) for i, r in enumerate(from_store)]
-            for i, iters, qr in checks:
-                p, v = queries[i]
-                want = solo.run(apps.get_program(p, source=v), max_iters=iters)
-                if not (np.array_equal(f(qr.values), f(want.values))
-                        and qr.iterations == want.num_iterations
-                        and qr.converged == want.converged):
-                    raise AssertionError(f"{p} {v} max_iters={iters}: lane != solo run")
+        # kept open: the mesh phase holds its engine to this one
+        solo = self.solo_engine = VSWEngine.from_store(
+            self.root, backend="cuda", batch_shards=4, device_resident=True,
+            **eng_kw)
+        checks = [(i, SERVE_ITERS, ragged[i]) for i in range(3)]
+        checks += [(i, 3, r) for i, r in enumerate(from_store)]
+        for i, iters, qr in checks:
+            p, v = queries[i]
+            want = solo.run(apps.get_program(p, source=v), max_iters=iters)
+            if not (np.array_equal(f(qr.values), f(want.values))
+                    and qr.iterations == want.num_iterations
+                    and qr.converged == want.converged):
+                raise AssertionError(f"{p} {v} max_iters={iters}: lane != solo run")
         print("  one query per program == its solo cuda VSWEngine.run bitwise; "
               "the 4 queries from the store too")
 
@@ -1350,6 +1389,213 @@ class Smoke:
             raise AssertionError(f"the pulse ran no lane kernel: {launches}")
         print(f"  lane kernel launches during the phase (solo runs' single-lane "
               f"kernels aside): {launches}")
+
+    def mesh(self):
+        """The multi-device path at one slot (the card's machine has one
+        H100): see the module docstring."""
+        import numpy as np
+        import torch.distributed as dist
+        torch = self.torch
+        from repro_torch.core import VSWEngine, apps, rmat_graph
+        from repro_torch.core import distributed as D
+        from repro_torch.core.distributed import run_distributed
+        from repro_torch.kernels.spmv_ell import kernel as K
+
+        n_cards = torch.cuda.device_count()
+        rep = self.report["mesh"] = {"cuda_devices": n_cards, "engine": {}}
+        print(f"  torch sees {n_cards} CUDA device(s)")
+        f = lambda v: np.nan_to_num(v, posinf=1e30)
+        eng_kw = dict(backend="cuda", device="cuda", batch_shards=4,
+                      prefetch_depth=2, device_resident=True)
+        solo = getattr(self, "solo_engine", None) or VSWEngine.from_store(
+            self.root, **eng_kw)
+        try:
+            t0 = time.perf_counter()
+            meshy = VSWEngine.from_store(self.root, mesh=1, **eng_kw)
+            rep["boot_s"] = time.perf_counter() - t0
+            with meshy:
+                self.mesh_engine(meshy, solo, rep, f)
+                self.mesh_service(meshy, solo, rep, f)
+            try:
+                VSWEngine.from_store(self.root, mesh=n_cards + 1, **eng_kw)
+                raise AssertionError(f"mesh={n_cards + 1} did not raise")
+            except RuntimeError as exc:
+                want = f"needs {n_cards + 1} devices, have {n_cards}"
+                if want not in str(exc):
+                    raise AssertionError(f"mesh={n_cards + 1}: {exc}") from exc
+                print(f"  mesh={n_cards + 1}: {str(exc).split(' — ')[0]}")
+        finally:
+            solo.close()
+            self.solo_engine = None
+
+        # the distributed superstep on a one-rank NCCL group
+        g = rmat_graph(DIST_VERTICES, DIST_EDGES, seed=DIST_SEED)
+        eng = VSWEngine.from_graph(
+            g, self.tmp.name + "/dist", num_shards=4, window=1 << 12, k=32,
+            tr=8, selective=False, **eng_kw)
+        # each superstep timed (synchronized) where run_distributed calls it
+        make_superstep, steps = D.make_superstep, []
+
+        def timed_superstep(*args, **kw):
+            step = make_superstep(*args, **kw)
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = step(*a)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                return res
+            return timed
+
+        D.make_superstep = timed_superstep
+        try:
+            dist.init_process_group(
+                "nccl", init_method=f"file://{self.tmp.name}/rdzv", rank=0,
+                world_size=1)
+            out = rep["superstep"] = {}
+            for name, prog, iters in (
+                    ("pagerank", apps.pagerank, DIST_PR_ITERS),
+                    ("sssp", lambda: apps.sssp(0), DIST_MAX_ITERS),
+                    ("wcc", apps.wcc, DIST_MAX_ITERS)):
+                r = eng.run(prog(), max_iters=iters)
+                K.segment_combine.launches = 0
+                steps.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, it = run_distributed(g, prog(), max_iters=iters)
+                wall = time.perf_counter() - t0
+                launches = K.segment_combine.launches
+                if name == "pagerank":
+                    err = float(np.abs(got - r.values).max())
+                    if not (launches == it and np.allclose(
+                            got, r.values, rtol=PR_RTOL, atol=PR_ATOL)):
+                        raise AssertionError(f"superstep pagerank: max err "
+                                             f"{err}, {launches} launches")
+                    self.launches["segment_combine"] += launches
+                elif not (np.array_equal(f(got), f(r.values)) and it < iters
+                          and r.converged and it == r.num_iterations):
+                    raise AssertionError(f"superstep {name}: != engine "
+                                         f"({it} vs {r.num_iterations} "
+                                         f"iterations)")
+                step_ms = float(np.median(steps)) * 1e3
+                eng_ms = float(np.median([i.time_s for i in r.iterations])) * 1e3
+                out[name] = {"iterations": it, "wall_s": wall,
+                             "superstep_ms": [x * 1e3 for x in steps],
+                             "engine_iter_s": [
+                                 i.time_s for i in r.iterations],
+                             "segment_combine_launches": launches}
+                print(f"  superstep {name} (NCCL, 1 rank): {it} iterations, "
+                      f"run_distributed {wall:.3f} s (device graph on the "
+                      f"host included), a superstep median {step_ms:.3f} ms "
+                      f"against the engine's iteration {eng_ms:.3f} ms; "
+                      + ("within rtol 1e-4 of the engine" if name == "pagerank"
+                         else "bitwise the engine"))
+        finally:
+            D.make_superstep = make_superstep
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            eng.close()
+
+    def mesh_engine(self, meshy, solo, rep, f):
+        """mesh=1 engine runs bitwise the single-device engine's; each
+        kernel's launches equal the dispatches."""
+        import numpy as np
+        from repro_torch.core import apps
+        from repro_torch.kernels.spmv_ell import kernel as K
+
+        torch = self.torch
+        for name, prog in (("pagerank", apps.pagerank),
+                           ("sssp", lambda: apps.sssp(0)), ("wcc", apps.wcc)):
+            want = solo.run(prog(), max_iters=MESH_ITERS)
+            K.ell_partials_masked.launches = 0
+            K.segment_combine.launches = 0
+            torch.cuda.synchronize()
+            got = meshy.run(prog(), max_iters=MESH_ITERS)
+            launches = (K.ell_partials_masked.launches,
+                        K.segment_combine.launches)
+            its = got.iterations
+            disp = sum(i.dispatches for i in its)
+            if not np.array_equal(f(got.values), f(want.values)):
+                raise AssertionError(f"mesh {name}: != single-device engine")
+            for i in its:
+                if not (sum(i.device_shards) == i.shards_processed
+                        and sum(i.device_bytes) == i.bytes_read):
+                    raise AssertionError(f"mesh {name} it{i.iteration}: "
+                                         f"{i.device_shards} {i.device_bytes}")
+            if launches != (disp, disp) or disp != sum(
+                    sum(i.device_dispatches) for i in its):
+                raise AssertionError(f"mesh {name}: launches {launches}, "
+                                     f"dispatches {disp}")
+            for kname, n in zip(("ell_partials_masked", "segment_combine"),
+                                launches):
+                self.launches[kname] += n
+            per = {k: [x.time_s for x in r.iterations]
+                   for k, r in (("mesh", got), ("single", want))}
+            rep["engine"][name] = {"iter_s": per, "dispatches": disp,
+                                   "launches": list(launches),
+                                   "device_shards": [i.device_shards for i in its]}
+            print(f"  mesh=1 {name}: bitwise the single-device engine, "
+                  f"{len(its)} iterations, launches {launches} == dispatches; "
+                  f"iteration s mesh {[round(t, 4) for t in per['mesh']]} "
+                  f"single {[round(t, 4) for t in per['single']]}")
+
+    def mesh_service(self, meshy, solo, rep, f):
+        """A mesh=1 service answers 8 queries, each bitwise its solo
+        single-device run."""
+        import numpy as np
+        from repro_torch.core import ShardStore, apps
+        from repro_torch.kernels.spmv_ell import kernel as K
+        from repro_torch.serve import GraphService
+
+        torch = self.torch
+        meta = ShardStore(self.root).read_meta()
+        rng = np.random.default_rng(self.args.seed + 21)
+        srcs = rng.choice(np.flatnonzero(meta.out_deg > 0), size=MESH_QUERIES,
+                          replace=False)
+        progs = ("bfs", "sssp", "wcc", "ppr")
+        queries = [(progs[i % 4], int(v)) for i, v in enumerate(srcs)]
+        lanes_k = ("ell_partials_ragged", "segment_combine_lanes")
+        svc = GraphService(meshy, max_lanes=16, max_groups=2, batch_shards=4)
+        for n in lanes_k:
+            getattr(K, n).launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with svc.submit_batch():
+            futs = [svc.submit(p, v, max_iters=MESH_QUERY_ITERS)
+                    for p, v in queries]
+        res = [fu.result(timeout=600) for fu in futs]
+        wall = time.perf_counter() - t0
+        svc.close(close_engine=False)  # joins the worker: stats are booked
+        launches = {n: getattr(K, n).launches for n in lanes_k}
+        disp = int(svc.metrics.counter("sweep.dispatches").value)
+        st = svc.last_sweep_stats
+        dev_disp = sum(sum(i.device_dispatches) for i in st)
+        if svc.stats()["mesh_devices"] != 1:
+            raise AssertionError(f"mesh_devices {svc.stats()['mesh_devices']}")
+        viol = svc.metrics_snapshot()["conservation_violations"]
+        if viol:
+            raise AssertionError(f"mesh service: {viol}")
+        if not (disp > 0 and set(launches.values()) == {disp}
+                and dev_disp == disp):
+            raise AssertionError(f"mesh service: launches {launches}, "
+                                 f"dispatches {disp}, per device {dev_disp}")
+        for (p, v), qr in zip(queries, res):
+            want = solo.run(apps.get_program(p, **({} if p == "wcc" else
+                                                   {"source": v})),
+                            max_iters=MESH_QUERY_ITERS)
+            if not (np.array_equal(f(qr.values), f(want.values))
+                    and qr.iterations == want.num_iterations):
+                raise AssertionError(f"mesh service {p} {v}: != solo run")
+        for n in lanes_k:
+            self.launches[n] += launches[n]
+        rep["service"] = {"queries": queries, "wall_s": wall,
+                          "launches": launches, "dispatches": disp,
+                          "iter_s": [i.time_s for i in st]}
+        print(f"  mesh=1 service: {len(queries)} queries in {wall:.2f} s, "
+              f"each bitwise its solo single-device run; launches "
+              f"{launches} == dispatches {disp}; mesh_devices 1, no "
+              f"conservation violation")
 
     @staticmethod
     def partials_bytes(torch, idxs, masks, tws, window, tr):
@@ -2443,6 +2689,7 @@ def main(argv=None) -> int:
         smoke.phase("main", smoke.main_path)
         if "main" not in smoke.failures:
             smoke.phase("serve", smoke.serve)
+            smoke.phase("mesh", smoke.mesh)
             smoke.phase("timing", smoke.timing)
             smoke.phase("sentinel", smoke.sentinel)
             smoke.phase("bloom", smoke.bloom)
@@ -2451,8 +2698,9 @@ def main(argv=None) -> int:
             if "ingest" not in smoke.failures:
                 smoke.phase("delta", smoke.delta)
                 smoke.phase("pulse", smoke.pulse)
-    if smoke.serve_engine is not None:
-        smoke.serve_engine.close()
+    for eng in (smoke.serve_engine, getattr(smoke, "solo_engine", None)):
+        if eng is not None:
+            eng.close()
     smoke.report["total_s"] = time.perf_counter() - t_all
     smoke.report["card"] = card
     if getattr(smoke, "tmp", None) is not None:

@@ -11,6 +11,9 @@ backend dispatch.
   shard's own tensors.  Bitwise equal to per-shard execution: every ELL
   row computes the same partial, and every destination row combines its
   partials in the same order.
+- :class:`MeshLaneExecutor` — an engine booted with ``mesh=``: each shard
+  goes to the buffer of the device slot that owns it, and every slot
+  holding shards launches on its own device (DESIGN.md §10).
 
 With ``lanes=True`` (the serving layer, DESIGN.md §6, §9, §14) messages
 are ``[L, |V|]`` and accumulators ``[L, rows]``: one shard load feeds every
@@ -42,6 +45,7 @@ copies its accumulator back to the host once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import (
@@ -68,6 +72,7 @@ __all__ = [
     "ExecStats",
     "PerShardExecutor",
     "BatchedEllExecutor",
+    "MeshLaneExecutor",
     "make_executor",
     "make_lane_executor",
     "resolve_device",
@@ -256,6 +261,11 @@ class ExecStats:
     overlap_s: float = 0.0
     #: CUDA event pairs around each update on the card (partials + combine)
     events: List[tuple] = dataclasses.field(default_factory=list)
+    #: mesh executors only: device slot -> shard applications / dispatches
+    #: routed to that slot (empty on single-device executors);
+    #: sum(device_shards.values()) == shards_executed
+    device_shards: Dict[int, int] = dataclasses.field(default_factory=dict)
+    device_dispatches: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     @property
     def kernel_s(self) -> float:
@@ -276,6 +286,8 @@ class ExecStats:
         self.group_lanes = {}
         self.overlap_s = 0.0
         self.events = []
+        self.device_shards = {}
+        self.device_dispatches = {}
 
 
 class _HostCopy:
@@ -287,9 +299,10 @@ class _HostCopy:
         self.event = None
         if acc.device.type == "cuda":
             self.host = torch.empty(acc.shape, dtype=acc.dtype, pin_memory=True)
-            self.host.copy_(acc, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            with torch.cuda.device(acc.device):
+                self.host.copy_(acc, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
         else:
             self.host = acc
 
@@ -597,6 +610,275 @@ class BatchedEllExecutor(_EllDispatch):
             pending = nxt
         if pending is not None:
             yield from collect(pending)
+
+
+class MeshLaneExecutor(_EllDispatch):
+    """Single-controller mesh executor: route each loaded shard to the
+    buffer of the mesh slot that owns it (:class:`~repro_torch.core.
+    distributed.MeshPartition`) and flush every slot together — "1 host
+    read, G x D slices" (DESIGN.md §10).
+
+    Shards buffer per slot up to ``batch_shards`` each; a slot that fills
+    flushes the round, and slots with no shard this round (destination
+    intervals the scheduler pruned) sit it out.  The engine's pipeline has
+    already put each shard on its owner's device (a resident shard stays
+    there), so routing copies nothing.  Every slot that holds shards
+    launches on its own device against that device's copy of the
+    messages, staged once an iteration (slots sharing a device share it).
+
+    Accounting is the reference's: ``dispatches`` counts one per flush on
+    the ragged path and one per live group and flush on the per-group path,
+    whatever the number of slots; ``device_shards`` and
+    ``device_dispatches`` count per slot.  **Launch rule:** each slot that
+    holds shards in a flush launches each kernel once (ragged path, and
+    the single-program path) or once per live group (per-group path), so a
+    kernel's launches equal ``sum(device_dispatches)``, which is
+    ``dispatches`` whenever one slot holds each flush's shards (one slot,
+    as on one card).  The ragged path collects a round after the next
+    round is dispatched, as :class:`BatchedEllExecutor` does.
+
+    Backends: ``numpy`` is the device-free emulation — per-shard oracle
+    calls with the same routing, flush cadence and accounting, bitwise the
+    reference's emulation; ``torch`` the plain tensor update; ``cuda`` the
+    kernels.  ``run`` (the engine's single program) runs the single-lane
+    update of :data:`ELL_BACKENDS` per slot (``ell_partials_masked`` and
+    ``segment_combine`` on ``cuda``), bitwise the single-device engine;
+    ``run_groups`` the lane updates of the mesh steps in
+    :mod:`~repro_torch.kernels.spmv_ell.ops`.
+    """
+
+    def __init__(self, backend: str, partition, mesh=None, *,
+                 batch_shards: int = 1, lanes: bool = False,
+                 ragged: bool = True, device="cuda"):
+        if backend not in LANE_BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend}; have {sorted(LANE_BACKENDS)}")
+        if backend != "numpy" and mesh is None:
+            raise ValueError("torch/cuda mesh execution needs a Mesh")
+        if mesh is not None and mesh.size != partition.n_dev:
+            raise ValueError(f"a {mesh.size}-slot mesh for a "
+                             f"{partition.n_dev}-device partition")
+        if batch_shards < 1:
+            raise ValueError("batch_shards must be >= 1")
+        if backend == "cuda" and batch_shards > spmv_kernel.MAX_BATCH:
+            raise ValueError(f"the cuda kernels take at most "
+                             f"{spmv_kernel.MAX_BATCH} shards a launch")
+        super().__init__(backend, device, lanes)
+        self.partition = partition
+        self.mesh = mesh
+        self.batch_shards = batch_shards
+        self.ragged = bool(ragged)
+
+    def _rounds(self, loaded: Iterable[LoadedShard]
+                ) -> Iterator[List[List[LoadedShard]]]:
+        """Per-slot buffers, yielded whenever one fills, then the rest."""
+        n_dev = self.partition.n_dev
+        bufs: List[List[LoadedShard]] = [[] for _ in range(n_dev)]
+        for ls in loaded:
+            d = self.partition.device_of(ls.shard_id)
+            bufs[d].append(ls)
+            if len(bufs[d]) >= self.batch_shards:
+                yield bufs
+                bufs = [[] for _ in range(n_dev)]
+        if any(bufs):
+            yield bufs
+
+    @staticmethod
+    def _book(stats: Optional[ExecStats], bufs, n_groups: int,
+              per_slot: int) -> None:
+        """One flush's shard and per-slot accounting."""
+        if stats is None:
+            return
+        stats.batches += 1
+        stats.shards_executed += sum(map(len, bufs)) * n_groups
+        for d, buf in enumerate(bufs):
+            if buf:
+                stats.device_shards[d] = (
+                    stats.device_shards.get(d, 0) + len(buf) * n_groups)
+                stats.device_dispatches[d] = (
+                    stats.device_dispatches.get(d, 0) + per_slot)
+
+    def _span(self, bufs, n_groups: int, **kw):
+        return trace.span("exec.dispatch", groups=n_groups,
+                          shards=sum(map(len, bufs)),
+                          devices=sum(1 for b in bufs if b),
+                          backend=self.backend_name, **kw)
+
+    def run(
+        self,
+        loaded: Iterable[LoadedShard],
+        msgs: np.ndarray,
+        combine: str,
+        stats: Optional[ExecStats] = None,
+    ) -> Iterator[ExecResult]:
+        """Single-program path (``VSWEngine.run``): one dispatch per flush,
+        each slot holding shards running the single-lane update."""
+        staged: Dict[torch.device, torch.Tensor] = {}
+        for bufs in self._rounds(loaded):
+            t0 = time.perf_counter()
+            with self._span(bufs, 1):
+                out = []
+                for d, buf in enumerate(bufs):
+                    if not buf:
+                        continue
+                    if self._fn is None:  # the numpy emulation
+                        out.append((buf, [update_shard_numpy(ls.csr, None, msgs,
+                                                             combine)
+                                          for ls in buf]))
+                        continue
+                    ells = [ls.ell for ls in buf]
+                    dev = self.mesh.devices.flat[d]
+                    if dev not in staged:
+                        staged[dev] = spmv_ops.stage_messages(
+                            msgs, ells[0].num_windows * ells[0].window, dev)
+                    with _on(dev):
+                        acc = self._launch(self._fn, ells,
+                                           (staged[dev], combine), stats)
+                        out.append((buf, _HostCopy(acc)))
+                results = [(buf, accs if isinstance(accs, list) else
+                            spmv_ops.split_rows([ls.ell for ls in buf],
+                                                accs.wait()))
+                           for buf, accs in out]
+            if stats is not None:
+                stats.dispatches += 1
+                stats.exec_s += time.perf_counter() - t0
+            self._book(stats, bufs, 1, 1)
+            for buf, accs in results:
+                for ls, acc in zip(buf, accs):
+                    ref = ls.ref
+                    yield ExecResult(ls.shard_id, ref.v0, ref.v1, acc,
+                                     batch_size=len(buf))
+
+    def run_groups(
+        self,
+        loaded: Iterable[LoadedShard],
+        groups: Sequence[GroupDispatch],
+        stats: Optional[ExecStats] = None,
+        staged: Optional[dict] = None,
+    ) -> Iterator[Tuple[int, ExecResult]]:
+        """Multi-group dispatch over the mesh; ``staged`` caches each
+        group's staged messages across calls, as the batched executor's."""
+        cache = {} if staged is None else staged
+        live = _live(groups)
+        if self.ragged:
+            yield from self._run_groups_ragged(loaded, live, stats, cache)
+            return
+        for bufs in self._rounds(loaded):
+            yield from self._flush(bufs, live, stats, cache)
+
+    def _numpy_round(self, bufs, live):
+        return [(gi, ls, update_shard_numpy_lanes(ls.csr, None, msgs, combine),
+                 len(buf))
+                for gi, (msgs, combine) in live for buf in bufs for ls in buf]
+
+    @staticmethod
+    def _unpack(live, bufs, accs_by_group):
+        return [(gi, ls, acc, len(buf))
+                for (gi, _), accs_dev in zip(live, accs_by_group)
+                for buf, accs in zip(bufs, accs_dev)
+                for ls, acc in zip(buf, accs)]
+
+    def _flush(self, bufs, live, stats, cache):
+        if not live:
+            return
+        t0 = time.perf_counter()
+        with self._span(bufs, len(live)):
+            if self._fn is None:
+                results = self._numpy_round(bufs, live)
+            else:
+                ells = [ls.ell for b in bufs for ls in b]
+                n_pad = ells[0].num_windows * ells[0].window
+                lanes = [_cached(cache, ("mesh", msgs), lambda m=msgs: (
+                    spmv_ops.mesh_stage_lanes(m, n_pad, self.mesh)))
+                    for _, (msgs, _) in live]
+                accs_by_group, _ = self._launch(
+                    lambda _ells: spmv_ops.ell_update_lanes_mesh_multi(
+                        [[ls.ell for ls in b] for b in bufs], lanes,
+                        [ga[1] for _, ga in live], mesh=self.mesh,
+                        backend=self.backend_name),
+                    ells, (), stats)
+                results = self._unpack(live, bufs, accs_by_group)
+        if stats is not None:
+            stats.dispatches += len(live)
+            stats.exec_s += time.perf_counter() - t0
+        self._book(stats, bufs, len(live), len(live))
+        for gi, ls, acc, bs in results:
+            ref = ls.ref
+            yield gi, ExecResult(ls.shard_id, ref.v0, ref.v1, acc,
+                                 batch_size=bs)
+
+    def _run_groups_ragged(self, loaded, live, stats, cache):
+        """One launch per slot and flush for ALL groups, with round ``i``'s
+        collect deferred until round ``i+1`` is dispatched."""
+        if not live:
+            for _ in loaded:  # consume the stream exactly like the G-path
+                pass
+            return
+        msgs_live = tuple(ga[0] for _, ga in live)
+        k_total = sum(int(m.shape[0]) for m in msgs_live)
+
+        def dispatch(bufs):
+            t0 = time.perf_counter()
+            with self._span(bufs, len(live), ragged=True):
+                if self._fn is None:
+                    handle = ("numpy", self._numpy_round(bufs, live), bufs)
+                else:
+                    ells = [ls.ell for b in bufs for ls in b]
+                    lane_ctx = _cached(cache, ("mesh-ragged", *msgs_live),
+                                       lambda: spmv_ops.mesh_ragged_stage_lanes(
+                                           msgs_live, [ga[1] for _, ga in live],
+                                           ells[0].num_windows * ells[0].window,
+                                           self.mesh))
+                    h = self._launch(
+                        lambda _ells: spmv_ops.mesh_ragged_dispatch(
+                            [[ls.ell for ls in b] for b in bufs], lane_ctx,
+                            mesh=self.mesh, backend=self.backend_name),
+                        ells, (), stats)
+                    h["acc"] = {d: _HostCopy(a) for d, a in h["acc"].items()}
+                    handle = ("mesh", h, bufs)
+            if stats is not None:
+                stats.dispatches += 1
+                stats.ragged_dispatches += 1
+                stats.ragged_lanes += k_total
+                for gi, ga in live:
+                    stats.group_lanes[gi] = (
+                        stats.group_lanes.get(gi, 0) + int(ga[0].shape[0]))
+                stats.exec_s += time.perf_counter() - t0
+            self._book(stats, bufs, len(live), 1)
+            return handle, time.perf_counter()
+
+        def collect(p):
+            (kind, payload, bufs), t_launch = p
+            if stats is not None:
+                stats.overlap_s += time.perf_counter() - t_launch
+            t0 = time.perf_counter()
+            if kind == "numpy":
+                results = payload
+            else:
+                payload["acc"] = {d: c.wait() for d, c in payload["acc"].items()}
+                accs_by_group, _ = spmv_ops.mesh_ragged_collect(payload)
+                results = self._unpack(live, bufs, accs_by_group)
+            if stats is not None:
+                stats.exec_s += time.perf_counter() - t0
+            for gi, ls, acc, bs in results:
+                ref = ls.ref
+                yield gi, ExecResult(ls.shard_id, ref.v0, ref.v1, acc,
+                                     batch_size=bs)
+
+        pending = None
+        for bufs in self._rounds(loaded):
+            nxt = dispatch(bufs)
+            if pending is not None:
+                yield from collect(pending)
+            pending = nxt
+        if pending is not None:
+            yield from collect(pending)
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current CUDA device (its events and streams), or
+    nothing off the card."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def make_executor(backend: str, *, batch_shards: int = 1, device="cuda"):

@@ -10,8 +10,9 @@ the same either way, since consumption order is always plan order.
 
 With a ``device``, ELL shards are moved there on the CONSUMER thread
 (:func:`~repro_torch.core.csr.ell_to_device`: the host->device copy plus
-the combine order), so prefetch threads never touch the device.  With a
-``resident`` dict the device copies are kept and reused on later
+the combine order), so prefetch threads never touch the device; a mesh
+engine's ``shard_device`` sends each shard to its owning slot's device.
+With a ``resident`` dict the device copies are kept and reused on later
 iterations without touching cache, disk, decode or the copy again.
 
 A shard with pending delta runs (:mod:`repro_torch.delta`) is decoded
@@ -29,7 +30,9 @@ import threading
 import time
 import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Sequence, Union
+from typing import Callable, Dict, Iterator, Optional, Sequence, Union
+
+import torch
 
 from ..obs import trace
 from .cache import ShardCache
@@ -102,6 +105,7 @@ class ShardPipeline:
         depth: int = 2,
         device=None,
         resident: Optional[Dict[int, DeviceEll]] = None,
+        shard_device: Optional[Callable[[int], torch.device]] = None,
     ):
         if depth < 0:
             raise ValueError("prefetch depth must be >= 0")
@@ -113,6 +117,9 @@ class ShardPipeline:
         self.depth = depth
         self.device = device
         self.resident = resident  # shard_id -> DeviceEll, engine-owned
+        # Mesh engines: shard id -> the device of the mesh slot that owns
+        # it, so each shard is copied once, straight to its owner.
+        self.shard_device = shard_device
         # Delta snapshot pin: the engine/lane sweep sets this to the overlay
         # version it pinned for the CURRENT sweep, so every load — inline
         # or from a prefetch thread — decodes the same graph version.
@@ -213,8 +220,10 @@ class ShardPipeline:
         if self.device is None or not isinstance(ls.ell, EllShard):
             return ls
         t0 = time.perf_counter()
+        device = (self.device if self.shard_device is None
+                  else self.shard_device(ls.shard_id))
         with trace.span("shard.to_device", shard=ls.shard_id):
-            ls.ell = ell_to_device(ls.ell, self.device)
+            ls.ell = ell_to_device(ls.ell, device)
         if self.resident is not None and not ls.logical:
             with self._resident_lock:
                 self.resident[ls.shard_id] = ls.ell

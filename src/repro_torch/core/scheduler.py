@@ -46,6 +46,13 @@ class ShardPlan:
     active_ratio: float
     plan_time_s: float
     lane_masks: Optional[Dict[int, np.ndarray]] = None
+    #: mesh plans only (the scheduler has a partition): planned shards
+    #: grouped by owning device, interval order within each device;
+    #: ``shards`` is then the round-robin interleave of these groups so the
+    #: executor's per-device buffers fill evenly.  A device whose
+    #: destination intervals are all inactive gets an EMPTY group and no
+    #: host read.  ``None`` on single-device plans.
+    device_shards: Optional[List[List[int]]] = None
 
     @property
     def num_planned(self) -> int:
@@ -54,6 +61,21 @@ class ShardPlan:
     @property
     def num_skipped(self) -> int:
         return len(self.skipped)
+
+    def device_stats(self, bytes_read: int, device_dispatches: Dict[int, int]):
+        """``(device_shards, device_dispatches, device_bytes)`` of a mesh
+        iteration (empty tuples on single-device plans): planned shards
+        per device, the executor's dispatches per device, and the
+        iteration's ``bytes_read`` split by planned shards (multiplied
+        first, so a device that owns every shard gets all of it)."""
+        if self.device_shards is None:
+            return (), (), ()
+        n = self.num_planned
+        return (tuple(len(g) for g in self.device_shards),
+                tuple(device_dispatches.get(d, 0)
+                      for d in range(len(self.device_shards))),
+                tuple(len(g) * bytes_read / n if n else 0.0
+                      for g in self.device_shards))
 
     def lane_shares(self, n_lanes: int) -> np.ndarray:
         """Mask-aware per-lane share of this plan's shard loads: each
@@ -92,6 +114,10 @@ class ShardScheduler:
         self.filters: Optional[List[BloomFilter]] = None
         self.exact_sources: Optional[List[np.ndarray]] = None
         self.loading_io: Optional[IOStats] = None
+        #: set by the engine's mesh boot path (a
+        #: :class:`~repro_torch.core.distributed.MeshPartition`); planning
+        #: stays on the host — the partition only regroups the planned list.
+        self.partition = None
 
     # ------------------------------------------------------------- loading
     def build_filters(
@@ -210,6 +236,14 @@ class ShardScheduler:
                         planned.append(p)
                     else:
                         skipped.append(p)
+            # With a mesh partition, group the planned list by owning
+            # device and interleave it round-robin.  Reordering is safe:
+            # per-shard accumulators touch disjoint destination intervals,
+            # and lane_shares/lane_masks are order-free.
+            device_shards = None
+            if self.partition is not None:
+                device_shards = self.partition.group(planned)
+                planned = self.partition.interleave(device_shards)
             out = ShardPlan(
                 shards=planned,
                 skipped=skipped,
@@ -217,6 +251,7 @@ class ShardScheduler:
                 active_ratio=active_ratio,
                 plan_time_s=time.perf_counter() - t0,
                 lane_masks=lane_masks,
+                device_shards=device_shards,
             )
             sp.set(shards=len(planned), skipped=len(skipped),
                    selective=use_selective)

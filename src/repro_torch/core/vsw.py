@@ -23,7 +23,9 @@ pipeline    :class:`~repro_torch.core.pipeline.ShardPipeline` — walks the
             ELL shards to the device.
 executor    :mod:`repro_torch.core.executor` — backend dispatch; with
             ``batch_shards > 1`` the ELL backends fuse consecutive planned
-            shards into one launch.
+            shards into one launch.  An engine booted with ``mesh=``
+            routes each shard to its owning device slot
+            (:class:`~repro_torch.core.executor.MeshLaneExecutor`).
 ==========  ===============================================================
 
 All layer combinations produce bit-identical values: the plan fixes the
@@ -44,11 +46,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..launch.mesh import make_host_mesh
 from ..obs import trace
 from .apps import VertexProgram
 from .cache import ShardCache, select_cache_mode
 from .csr import DeviceEll
-from .executor import BACKENDS, ExecStats, make_executor, resolve_device
+from .distributed import MeshPartition
+from .executor import (BACKENDS, ExecStats, MeshLaneExecutor, make_executor,
+                       resolve_device)
 from .graph import Graph
 from .pipeline import PipelineStats, ShardPipeline
 from .scheduler import ShardScheduler
@@ -79,6 +84,13 @@ class IterStats:
     dispatches: int = 0  # kernel dispatches (< processed when batching)
     padding_ratio: float = 0.0  # of the dispatched ELL slots
     prefetch_depth: int = 0
+    # ---- mesh runs (DESIGN.md §10); empty tuples on single-device runs.
+    # sum(device_shards) == shards_processed and sum(device_bytes) ==
+    # bytes_read: the host read each shard ONCE and attribution splits it
+    # by owning device, never multiplies it by D.
+    device_shards: tuple = ()  # planned shards owned per device
+    device_dispatches: tuple = ()  # dispatches that carried work per device
+    device_bytes: tuple = ()  # bytes_read attributed per device
 
 
 @dataclasses.dataclass
@@ -126,14 +138,32 @@ class VSWEngine:
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend}; have {sorted(BACKENDS)}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device sweeps) is ROADMAP Queue 1 item 8, "
-                "not ported yet")
         self.device = resolve_device(device)
         self.store = store
         self.meta = store.read_meta()
         self.backend_name = backend
+        # ---- mesh boot path (DESIGN.md §10).  ``mesh`` is a device count
+        # or a ready Mesh.  numpy + a count is the device-free mesh
+        # EMULATION (same partition, plan and accounting, oracle compute);
+        # the ELL backends build a host mesh of the count on this engine's
+        # device type, which raises launch.mesh's uniform error when there
+        # are too few devices.
+        self.partition = None
+        self.mesh = None
+        if mesh is not None:
+            if isinstance(mesh, (int, np.integer)):
+                n_dev = int(mesh)
+                if backend != "numpy":
+                    self.mesh = make_host_mesh((n_dev,), ("dev",),
+                                               device=self.device.type)
+            else:
+                self.mesh = mesh
+                n_dev = mesh.size
+            if self.mesh is not None and any(
+                    d.type != self.device.type for d in self.mesh.device_list()):
+                raise ValueError(f"a mesh of {self.mesh.device_list()} for an "
+                                 f"engine on {self.device}")
+            self.partition = MeshPartition.from_meta(self.meta, n_dev)
         if cache_bytes > 0 and cache_mode == 0:
             # GraphH-style auto mode selection on a sample shard (§II-D-2)
             sample = store.shard_bytes(0, self._fmt)
@@ -156,6 +186,7 @@ class VSWEngine:
             bloom_fp=bloom_fp,
             exact_selective=exact_selective,
         )
+        self.scheduler.partition = self.partition
         self.scheduler.build_filters(
             store, warm_cache=self.cache, cache_fmt=self._fmt
         )
@@ -166,9 +197,15 @@ class VSWEngine:
             depth=prefetch_depth,
             device=None if backend == "numpy" else self.device,
             resident=self._device_shards if self.device_resident else None,
+            shard_device=self._owner_device if self.mesh is not None else None,
         )
-        self.executor = make_executor(backend, batch_shards=batch_shards,
-                                      device=self.device)
+        if self.partition is not None:
+            self.executor = MeshLaneExecutor(
+                backend, self.partition, self.mesh,
+                batch_shards=batch_shards, lanes=False, device=self.device)
+        else:
+            self.executor = make_executor(backend, batch_shards=batch_shards,
+                                          device=self.device)
 
         # A shard overwrite on the live store must not leave stale copies
         # in this engine's byte cache or resident map.  The hook holds only
@@ -190,6 +227,10 @@ class VSWEngine:
         # degrees, filters and shard decodes on ONE graph version.
         self._delta_seen = -1
         self._refresh_delta_state()
+
+    def _owner_device(self, p: int):
+        """The device of the mesh slot that owns shard ``p``."""
+        return self.mesh.devices.flat[self.partition.device_of(p)]
 
     def _on_shard_invalidated(self, p: int) -> None:
         """Store callback: shard ``p`` was overwritten, removed, compacted
@@ -396,6 +437,8 @@ class VSWEngine:
             src_vals = dst_vals
             dio = self.store.io - io0
 
+            dev_shards, dev_disp, dev_bytes = plan.device_stats(
+                dio.bytes_read, xstats.device_dispatches)
             stats.append(
                 IterStats(
                     iteration=it,
@@ -419,6 +462,9 @@ class VSWEngine:
                     dispatches=xstats.dispatches,
                     padding_ratio=xstats.padding_ratio,
                     prefetch_depth=self.pipeline.depth,
+                    device_shards=dev_shards,
+                    device_dispatches=dev_disp,
+                    device_bytes=dev_bytes,
                 )
             )
             if len(active_ids) == 0:

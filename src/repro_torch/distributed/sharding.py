@@ -2,8 +2,11 @@
 
 The port of ``repro/distributed/sharding.py`` keeps only what one card
 needs: :class:`ShardingCtx` with its attention settings, and ``ac`` as the
-identity.  Logical-axis rules and meshes wait for the multi-device port
-(ROADMAP Queue 1 item 8); asking for either raises.
+identity.  The graph engine's mesh path (``VSWEngine(mesh=...)``) drives
+its devices from one process and needs no partition specs, so there is no
+``graph_ctx``.  Logical-axis rules and meshes for a *model* belong to the
+sharded dry run and training of ROADMAP Queue 1 item 10; asking for either
+raises.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ class ShardingCtx:
     def __post_init__(self):
         if self.mesh is not None or self.rules is not None:
             raise NotImplementedError(
-                "meshes and sharding rules are not ported yet "
-                "(ROADMAP Queue 1 item 8)")
+                "model meshes and sharding rules are not ported yet "
+                "(ROADMAP Queue 1 item 10)")
 
     def ac(self, x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
         """Activation sharding constraint: the identity without a mesh."""

@@ -31,6 +31,26 @@ axis: ``[L, |V|]`` messages, ``[L, rows]`` accumulators.
   ``ell_update_lanes_ragged`` chains the three.  Per group it is bitwise
   ``ell_update_lanes_multi``.
 
+The mesh steps (DESIGN.md §10) run the same updates over the slots of a
+:class:`~repro_torch.launch.mesh.Mesh` from one process: ``device_ells[d]``
+holds the shards slot ``d`` owns this round, already on the slot's device.
+
+- ``mesh_ragged_stage_lanes`` stages the lanes once on the first slot's
+  device and copies them once to every other distinct device (what the
+  reference's all-gather of the lane messages delivers); slots sharing a
+  device share the tensor.
+- ``mesh_ragged_dispatch`` / ``mesh_ragged_collect`` launch one ragged
+  update per non-empty slot and slice the accumulators back;
+  ``ell_update_lanes_mesh_ragged`` chains the three, and
+  ``ell_update_lanes_mesh_multi`` launches once per group and slot.
+- ``ell_update_arrays`` is the global-index update of the distributed
+  superstep: a plain gather, then the ``segment_combine`` kernel for sums.
+
+The lane steps' ``backend`` is the executor's: ``"cuda"`` launches the
+kernels, ``"torch"`` runs the plain tensor update.  They return the
+accumulators with the count of accumulator slots that are not their
+lane's identity (the reference's psum'd activity proxy).
+
 On the card these launch the CUDA kernels; on CPU tensors the kernels'
 plain versions run in their place.
 """
@@ -42,14 +62,19 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ...core.csr import DeviceEll, ragged_lane_concat, ragged_lane_pad
+from ...core.csr import (DeviceEll, _combine_order, ragged_lane_concat,
+                         ragged_lane_pad)
 from . import kernel as K
 
 __all__ = ["SENTINEL_PAD", "VARIANTS", "ell_update", "ell_update_batched",
            "extend_windows", "stage_messages", "stage_lanes",
            "ell_update_lanes", "ell_update_lanes_batched",
            "ell_update_lanes_multi", "ragged_stage_lanes", "ragged_dispatch",
-           "ragged_collect", "ell_update_lanes_ragged", "split_rows"]
+           "ragged_collect", "ell_update_lanes_ragged", "split_rows",
+           "mesh_stage_lanes", "mesh_ragged_stage_lanes",
+           "mesh_ragged_dispatch", "mesh_ragged_collect",
+           "ell_update_lanes_mesh_multi", "ell_update_lanes_mesh_ragged",
+           "ell_update_arrays"]
 
 
 def stage_messages(msgs: np.ndarray, n_pad: int, device) -> torch.Tensor:
@@ -261,3 +286,187 @@ def ell_update_lanes_ragged(ells: Sequence[DeviceEll],
     ctx = ragged_stage_lanes(msgs_by_group, combines,
                              first.num_windows * first.window, first.device)
     return ragged_collect(ells, ragged_dispatch(ells, ctx), ctx["slices"])
+
+
+# ---------------------------------------------------------------------- mesh
+def _mesh_fns(backend: str):
+    """The executor's ragged and lane updates for ``backend`` (``torch``:
+    plain tensor ops; ``cuda``: the kernels)."""
+    from ...core import executor as X
+
+    if backend not in X.RAGGED_BACKENDS:
+        raise ValueError(f"mesh updates need an ELL backend, got {backend!r}; "
+                         f"have {sorted(X.RAGGED_BACKENDS)}")
+    return X.RAGGED_BACKENDS[backend], X.LANE_ELL_BACKENDS[backend]
+
+
+def _distinct(devices) -> List[torch.device]:
+    out: List[torch.device] = []
+    for d in devices:
+        if d not in out:
+            out.append(d)
+    return out
+
+
+def _mesh_batches(device_ells, mesh):
+    devices = mesh.device_list()
+    if len(device_ells) != len(devices):
+        raise ValueError(f"device_ells has {len(device_ells)} slots for a "
+                         f"{len(devices)}-device mesh")
+    out = {}
+    for d, ells in enumerate(device_ells):
+        if len(ells):
+            first = _check_batch(ells)
+            if first.device != devices[d]:
+                raise ValueError(f"slot {d}'s shards are on {first.device}, "
+                                 f"its device is {devices[d]}")
+            out[d] = list(ells)
+    return out
+
+
+def _touched(acc: np.ndarray, ident: np.ndarray) -> int:
+    """Accumulator slots of ``acc [L, rows]`` that differ from their lane's
+    identity ``ident [L]`` (padding lanes: 0, which their zero rows hold)."""
+    return int((acc != ident[:, None]).sum())
+
+
+def mesh_stage_lanes(msgs: np.ndarray, n_pad_v: int, mesh) -> dict:
+    """One group's ``[K_g, |V|]`` messages staged once on each distinct
+    device of ``mesh`` (device -> :class:`~repro_torch.kernels.spmv_ell.
+    kernel.LaneMessages`), the vertex axis padded to whole windows."""
+    devs = _distinct(mesh.device_list())
+    first = stage_lanes(msgs, n_pad_v, devs[0])
+    return {dev: first if dev == devs[0] else K.LaneMessages(first.rows.to(dev))
+            for dev in devs}
+
+
+def mesh_ragged_stage_lanes(msgs_by_group, combines: Sequence[str],
+                            n_pad_v: int, mesh) -> dict:
+    """Mesh variant of :func:`ragged_stage_lanes`: the lane side staged on
+    the first slot's device and copied once to each other distinct device
+    (``by_device``).  The reference also pads the vertex axis to a multiple
+    of the slot count, so that it shards evenly for its all-gather; here
+    every device holds the whole matrix, so whole windows suffice."""
+    devs = _distinct(mesh.device_list())
+    ctx = ragged_stage_lanes(msgs_by_group, combines, n_pad_v, devs[0])
+    by_device = {devs[0]: ctx}
+    for dev in devs[1:]:
+        by_device[dev] = dict(ctx, msgs=K.LaneMessages(ctx["msgs"].rows.to(dev)),
+                              cids=ctx["cids"].to(dev))
+    cids = ctx["cids"].cpu().numpy()
+    ident = np.array([K.IDENTITY[ctx["combines"][c]]
+                      if c < len(ctx["combines"]) else 0.0 for c in cids],
+                     dtype=np.float32)
+    return dict(ctx, by_device=by_device, ident=ident)
+
+
+def mesh_ragged_dispatch(device_ells: Sequence[Sequence[DeviceEll]], lane_ctx,
+                         *, mesh, backend: str = "cuda"):
+    """Launch ONE ragged update on every slot that holds shards this round,
+    each on its slot's device against that device's copy of the lanes.
+    Returns a handle for :func:`mesh_ragged_collect` whose ``acc`` maps a
+    slot to its ``[k_pad, rows]`` accumulator, left on the device so the
+    caller can stage the next round while the launches run; ``None`` when
+    every slot is empty."""
+    ragged_fn, _ = _mesh_fns(backend)
+    batches = _mesh_batches(device_ells, mesh)
+    if not batches:
+        return None
+    devices = mesh.device_list()
+    acc = {d: ragged_fn(ells, lane_ctx["by_device"][devices[d]])
+           for d, ells in batches.items()}
+    return {"batches": batches, "n_dev": len(devices), "acc": acc,
+            "slices": lane_ctx["slices"], "ident": lane_ctx["ident"]}
+
+
+def mesh_ragged_collect(handle):
+    """A mesh ragged handle as ``(accs_by_group, touched)``:
+    ``accs_by_group[g][d]`` lists slot ``d``'s per-shard ``[K_g, rows]``
+    accumulators (empty for idle slots).  The handle's accumulators may be
+    tensors (copied here, which waits for the launch) or host arrays."""
+    accs = {d: a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for d, a in handle["acc"].items()}
+    batches = handle["batches"]
+    touched = sum(_touched(a, handle["ident"]) for a in accs.values())
+    accs_by_group = [
+        [split_rows(batches[d], accs[d][sl]) if d in batches else []
+         for d in range(handle["n_dev"])]
+        for sl in handle["slices"]
+    ]
+    return accs_by_group, touched
+
+
+def ell_update_lanes_mesh_ragged(device_ells, msgs_by_group, combines, *,
+                                 mesh, backend: str = "cuda"):
+    """Per-slot, per-shard ``[K_g, rows]`` accumulators for every group from
+    ONE launch per non-empty slot; bitwise the multi path's per group.
+    Returns ``(accs_by_group, touched)``."""
+    if len(msgs_by_group) != len(combines):
+        raise ValueError("one combine per message group")
+    first = next((ells[0] for ells in device_ells if len(ells)), None)
+    if first is None:
+        return [[[] for _ in device_ells] for _ in msgs_by_group], 0
+    ctx = mesh_ragged_stage_lanes(msgs_by_group, combines,
+                                  first.num_windows * first.window, mesh)
+    return mesh_ragged_collect(mesh_ragged_dispatch(device_ells, ctx, mesh=mesh,
+                                                    backend=backend))
+
+
+def ell_update_lanes_mesh_multi(device_ells, msgs_by_group, combines, *,
+                                mesh, backend: str = "cuda"):
+    """The mesh's per-group dispatch: for each group, one lane update on
+    every slot that holds shards.  A group's messages are a ``[K_g, |V|]``
+    array or the device map :func:`mesh_stage_lanes` made of it.  Returns
+    ``(accs_by_group, touched_by_group)``; ``accs_by_group[g][d]`` lists
+    slot ``d``'s per-shard accumulators (empty for idle slots)."""
+    if len(msgs_by_group) != len(combines):
+        raise ValueError("one combine per message group")
+    _, lane_fn = _mesh_fns(backend)
+    batches = _mesh_batches(device_ells, mesh)
+    n_dev = len(device_ells)
+    if not batches:
+        return [[[] for _ in device_ells] for _ in msgs_by_group], \
+            [0] * len(msgs_by_group)
+    first = next(iter(batches.values()))[0]
+    devices = mesh.device_list()
+    accs_by_group, touched_by_group = [], []
+    for msgs, combine in zip(msgs_by_group, combines):
+        if not isinstance(msgs, dict):
+            msgs = mesh_stage_lanes(msgs, first.num_windows * first.window,
+                                    mesh)
+        accs = {d: lane_fn(ells, msgs[devices[d]], combine).cpu().numpy()
+                for d, ells in batches.items()}
+        ident = np.full(next(iter(accs.values())).shape[0],
+                        K.IDENTITY[combine], dtype=np.float32)
+        touched_by_group.append(sum(_touched(a, ident) for a in accs.values()))
+        accs_by_group.append([split_rows(batches[d], accs[d]) if d in accs
+                              else [] for d in range(n_dev)])
+    return accs_by_group, touched_by_group
+
+
+def ell_update_arrays(idx_global: torch.Tensor, valid, seg: torch.Tensor,
+                      msgs: torch.Tensor, rows: int, combine: str
+                      ) -> torch.Tensor:
+    """Global-index update (the distributed superstep): ``acc[rows]`` from
+    ELL rows of global source ids against the whole message array.
+
+    The gather is plain tensor ops, as the reference's is XLA.  Sums fold
+    each ELL row, then the rows through the ``segment_combine`` kernel (its
+    plain version on CPU tensors): a fixed order, no atomics.  Min and max
+    fold through ``scatter_reduce``, which no order changes.  ``valid=None``
+    is the sentinel layout: padding slots index past the end of ``msgs``,
+    and one identity slot there answers them."""
+    ident = K.IDENTITY[combine]
+    gidx = idx_global.to(torch.int64)
+    if valid is None:
+        valid = gidx < msgs.numel()
+        g = torch.cat([msgs, msgs.new_full((1,), ident)])[gidx]
+    else:
+        g = torch.where(valid, msgs[gidx.clamp(0, msgs.numel() - 1)], ident)
+    if combine == "sum":
+        perm, row_ptr = _combine_order(valid, seg, rows)
+        return K.segment_combine(g.sum(dim=1), perm, row_ptr, "sum")
+    part = g.amin(dim=1) if combine == "min" else g.amax(dim=1)
+    acc = torch.full((rows,), ident, dtype=msgs.dtype, device=msgs.device)
+    return acc.scatter_reduce_(0, seg.to(torch.int64), part,
+                               reduce="amin" if combine == "min" else "amax")

@@ -13,17 +13,22 @@ IOStats            reads==0 -> bytes_read==0 (and same for writes)
 CacheStats         counters non-negative
 PipelineStats      counters non-negative
 ExecStats          ragged_dispatches <= batches <= dispatches,
-                   sum(group_lanes.values()) == ragged_lanes
-IterStats          counters non-negative
-SweepIterStats     ragged_dispatches <= batches <= dispatches
+                   sum(group_lanes.values()) == ragged_lanes,
+                   mesh: sum(device_shards) == shards_executed,
+                   sum(device_dispatches) == dispatches
+IterStats          counters non-negative; mesh: sum(device_shards) ==
+                   shards_processed, sum(device_bytes) == bytes_read,
+                   sum(device_dispatches) == dispatches
+SweepIterStats     ragged_dispatches <= batches <= dispatches; mesh:
+                   sum(device_shards) == shards_processed,
+                   sum(device_bytes) == bytes_read
 IngestStats        spill + shard + meta bytes == bytes_written_total,
                    spill bytes read back exactly once
 CompactionStats    counters non-negative
 =================  ======================================================
 
-The reference's ``CollectiveStats`` adapter and its mesh identities
-(per-device shards, dispatches and bytes) come with the multi-device port
-(ROADMAP Queue 1 item 8).  Adapters dispatch on ``type(obj).__name__`` so
+The reference's ``CollectiveStats`` adapter comes with the roofline of
+ROADMAP Queue 1 item 10.  Adapters dispatch on ``type(obj).__name__`` so
 this module imports nothing of the engine.
 
 Histograms are fixed log-bucket streaming estimators: ~7% bucket growth
@@ -519,6 +524,43 @@ def _ingest_exec(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:
             sum(s.group_lanes.values()),
             s.ragged_lanes,
         )
+    if s.device_shards:
+        reg.check(
+            f"{p}: sum(device_shards) == shards_executed",
+            sum(s.device_shards.values()),
+            s.shards_executed,
+        )
+    if s.device_dispatches:
+        reg.check(
+            f"{p}: sum(device_dispatches) == dispatches",
+            sum(s.device_dispatches.values()),
+            s.dispatches,
+        )
+
+
+def _device_conservation(
+    reg: MetricsRegistry, s: Any, p: str, dispatches: Optional[int]
+) -> None:
+    """Shared IterStats/SweepIterStats mesh identities (DESIGN.md §10)."""
+    if s.device_shards:
+        reg.check(
+            f"{p}[{s.iteration}]: sum(device_shards) == shards_processed",
+            sum(s.device_shards),
+            s.shards_processed,
+        )
+    if s.device_bytes:
+        reg.check(
+            f"{p}[{s.iteration}]: sum(device_bytes) == bytes_read",
+            sum(s.device_bytes),
+            s.bytes_read,
+            tol=1e-9,
+        )
+    if s.device_dispatches and dispatches is not None:
+        reg.check(
+            f"{p}[{s.iteration}]: sum(device_dispatches) == dispatches",
+            sum(s.device_dispatches),
+            dispatches,
+        )
 
 
 def _ingest_iter(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:
@@ -539,6 +581,7 @@ def _ingest_iter(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:
         ),
     )
     reg.histogram(f"{p}.time_s").record(s.time_s)
+    _device_conservation(reg, s, p, s.dispatches)
 
 
 def _ingest_sweep_iter(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:
@@ -578,6 +621,7 @@ def _ingest_sweep_iter(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> N
         min(s.ragged_dispatches, s.batches),
         s.ragged_dispatches,
     )
+    _device_conservation(reg, s, p, None)
 
 
 def _ingest_ingest(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:

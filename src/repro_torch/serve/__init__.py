@@ -27,7 +27,10 @@ loadgen     :class:`~repro_torch.serve.loadgen.LoadGenerator` — closed- and
             service, with a bitwise-oracle record of every answer.
 ==========  ===============================================================
 
-Mesh sweeps wait for the multi-device port (ROADMAP Queue 1 item 8).
+On an engine booted with ``mesh=`` (a device count or a
+:class:`~repro_torch.launch.mesh.Mesh`), :class:`~repro_torch.serve.sweep.
+MeshSweep` and every sweep of the service route each shard to its owning
+device slot (DESIGN.md §10).
 """
 
 from .batcher import LaneBatcher, pad_lanes

@@ -29,8 +29,10 @@ copy until compaction folds the runs into its base.  Warm restarts
 :mod:`repro_torch.checkpoint.warm_state`.  :meth:`GraphService.
 start_telemetry` runs a ticker that closes time-series windows of the
 service's metrics and evaluates SLO burn rates (:mod:`repro_torch.obs`).
-Mesh serving waits for the multi-device port (ROADMAP Queue 1 item 8):
-``mesh=`` raises ``NotImplementedError``.
+Mesh serving (DESIGN.md §10): ``mesh=`` passes through every factory to
+:class:`~repro_torch.core.vsw.VSWEngine`, and every sweep then dispatches
+per-device slices ("1 host read, G x D slices"); results are bitwise the
+single-device service's, and ``stats()["mesh_devices"]`` reports D.
 """
 
 from __future__ import annotations
@@ -665,8 +667,9 @@ class GraphService:
                 if p.request_id not in resolved and not p.future.done():
                     p.future.set_exception(exc)
         finally:
-            # Conservation identities get declared per iteration and the
-            # stage-timing histograms feed metrics_snapshot.
+            # Conservation identities (the mesh device splits included) get
+            # declared per iteration and the stage-timing histograms feed
+            # metrics_snapshot.
             for st in sweep.iter_stats:
                 self.metrics.ingest(st)
                 self.metrics.histogram("stage.load_s").record(st.load_total_s)
@@ -697,7 +700,9 @@ class GraphService:
                 "updates_published": self._updates_done,
                 "updates_pending": len(self._updates),
                 "graph_version": self.graph_version,
-                "mesh_devices": 0,
+                # the engine's mesh= boot path; 0 on single-device services
+                "mesh_devices": (self.engine.partition.n_dev
+                                 if self.engine.partition is not None else 0),
             }
         delta = self.engine.store.delta
         out["dirty_shards"] = len(delta.dirty_shards()) if delta else 0

@@ -28,8 +28,7 @@ per group.  I/O cost is attributed mask-aware
 (:meth:`~repro_torch.core.scheduler.ShardPlan.lane_shares`).
 
 :class:`LaneSweep` is the single-program wrapper: one program, one group.
-Mesh sweeps (``MeshSweep``) wait for the multi-device port (ROADMAP
-Queue 1 item 8).
+:class:`MeshSweep` is a fused sweep on an engine booted with ``mesh=``.
 """
 
 from __future__ import annotations
@@ -41,7 +40,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 
 from ..core.apps import LaneProgram
-from ..core.executor import ExecStats, make_lane_executor
+from ..core.executor import ExecStats, MeshLaneExecutor, make_lane_executor
 from ..core.pipeline import PipelineStats
 from ..core.scheduler import ShardPlan
 from ..core.vsw import VSWEngine
@@ -113,6 +112,13 @@ class SweepIterStats:
     # double-buffer overlap: wall time launches stayed in flight while the
     # host staged the next batch.
     overlap_s: float = 0.0
+    # mesh sweeps (DESIGN.md §10); empty tuples on single-device sweeps.
+    # Conserved like IterStats': sum(device_shards) == shards_processed,
+    # sum(device_bytes) == bytes_read — one host read per shard, split by
+    # owning device.
+    device_shards: tuple = ()
+    device_dispatches: tuple = ()
+    device_bytes: tuple = ()
 
 
 class LaneTable:
@@ -304,10 +310,20 @@ class FusedSweep:
         # batch i+1 is dispatched.  Bitwise equal per group; the numpy
         # oracle always runs per group.
         self.ragged = ragged
-        self.executor = make_lane_executor(
-            engine.backend_name, batch_shards=batch_shards, ragged=ragged,
-            device=engine.device,
-        )
+        # An engine booted with ``mesh=`` carries a MeshPartition: dispatch
+        # then routes each loaded shard to its owning device slot — "1 host
+        # read, G x D slices" (DESIGN.md §10).  Same run_groups surface.
+        if engine.partition is not None:
+            self.executor = MeshLaneExecutor(
+                engine.backend_name, engine.partition, engine.mesh,
+                batch_shards=batch_shards, lanes=True, ragged=ragged,
+                device=engine.device,
+            )
+        else:
+            self.executor = make_lane_executor(
+                engine.backend_name, batch_shards=batch_shards, ragged=ragged,
+                device=engine.device,
+            )
         self.iter_stats: List[SweepIterStats] = []
 
     # ------------------------------------------------------------------ run
@@ -455,6 +471,9 @@ class FusedSweep:
                                     else:
                                         backfilled += 1
 
+                    dev_shards, dev_disp, dev_bytes = plan.device_stats(
+                        dio.bytes_read, xstats.device_dispatches)
+
                     self.iter_stats.append(SweepIterStats(
                         iteration=it,
                         live_lanes=total_live,
@@ -475,6 +494,9 @@ class FusedSweep:
                         batches=xstats.batches,
                         ragged_dispatches=xstats.ragged_dispatches,
                         overlap_s=xstats.overlap_s,
+                        device_shards=dev_shards,
+                        device_dispatches=dev_disp,
+                        device_bytes=dev_bytes,
                     ))
                     it_sp.set(shards=plan.num_planned, live_lanes=total_live,
                               groups=n_groups_live, retired=retired,
@@ -560,13 +582,26 @@ class FusedSweep:
 
 
 class MeshSweep(FusedSweep):
-    """A fused sweep over several devices: waits for the multi-device port
-    (ROADMAP Queue 1 item 8)."""
+    """A :class:`FusedSweep` whose engine was booted with ``mesh=``
+    (DESIGN.md §10).
+
+    The partition is the engine's :class:`~repro_torch.core.distributed.
+    MeshPartition`: destination intervals owned per device, so each
+    destination vertex is updated by exactly ONE device.  Per iteration:
+    one host plan, one host read per planned shard, the lane messages on
+    every device, one dispatch per flush covering every device's slice
+    (ragged) or one per live group — per-device attribution lands in
+    :class:`SweepIterStats`' ``device_*`` fields.  This class only asserts
+    the partition exists; the behavior is the fused sweep's (mesh routing
+    lives in the executor the base constructor selects).
+    """
 
     def __init__(self, engine: VSWEngine, **kwargs):
-        raise NotImplementedError(
-            "MeshSweep (multi-device sweeps) is ROADMAP Queue 1 item 8, "
-            "not ported yet")
+        if engine.partition is None:
+            raise ValueError(
+                "MeshSweep needs an engine booted with mesh= (a device count "
+                "or a Mesh); use FusedSweep for single-device engines")
+        super().__init__(engine, **kwargs)
 
 
 class LaneSweep:

@@ -1057,3 +1057,91 @@ def test_bloom_any_alternating_hit_and_no_hit(dev, two_streams):
     torch.cuda.synchronize(dev)
     for i, out in enumerate(outs):
         assert torch.equal(out, want if i % 2 == 0 else torch.zeros_like(want)), i
+
+
+# --------------------------------------------------------------------- mesh
+def test_mesh_engine_and_service_at_one_slot_are_bitwise_single_device(
+        dev, tmp_path):
+    """``mesh=1`` on the card: the engine and the service bitwise the
+    single-device ones, and each kernel's launches equal
+    ``sum(device_dispatches)`` (one slot: the dispatches).  A mesh of more
+    cards than the machine has raises the uniform error from the engine."""
+    from repro_torch.serve import GraphService
+
+    g = rmat_graph(3000, 40000, seed=17)
+    kw = dict(num_shards=6, window=512, k=32, backend="cuda", device="cuda",
+              batch_shards=2, device_resident=True)
+    root = str(tmp_path / "store")
+    solo = VSWEngine.from_graph(g, root, **kw)
+    kw.pop("num_shards"), kw.pop("window"), kw.pop("k")
+    meshy = VSWEngine.from_store(root, mesh=1, **kw)
+    assert meshy.executor.__class__.__name__ == "MeshLaneExecutor"
+    for prog in (apps.pagerank(), apps.sssp(0), apps.wcc()):
+        want = solo.run(prog, max_iters=5)
+        before = (K.ell_partials_masked.launches, K.segment_combine.launches)
+        got = meshy.run(prog, max_iters=5)
+        launches = (K.ell_partials_masked.launches - before[0],
+                    K.segment_combine.launches - before[1])
+        assert np.array_equal(got.values, want.values), prog.name
+        disp = sum(i.dispatches for i in got.iterations)
+        assert launches == (disp, disp)
+        assert disp == sum(sum(i.device_dispatches) for i in got.iterations)
+        for i in got.iterations:
+            assert i.device_shards == (i.shards_processed,)
+            assert i.device_bytes == (float(i.bytes_read),)
+    cases = [("bfs", 1), ("sssp", 2), ("wcc", 0), ("ppr", 3)]
+    svc = GraphService(meshy, max_lanes=8, max_groups=2, batch_shards=2)
+    before = (K.ell_partials_ragged.launches, K.segment_combine_lanes.launches)
+    with svc.submit_batch():
+        futs = [svc.submit(p, s, max_iters=5) for p, s in cases]
+    res = [f.result(timeout=300) for f in futs]
+    svc.close(close_engine=False)
+    launches = (K.ell_partials_ragged.launches - before[0],
+                K.segment_combine_lanes.launches - before[1])
+    disp = int(svc.metrics.counter("sweep.dispatches").value)
+    assert launches == (disp, disp) and disp > 0
+    assert svc.stats()["mesh_devices"] == 1
+    assert svc.metrics_snapshot()["conservation_violations"] == []
+    for (p, s), qr in zip(cases, res):
+        want = solo.run(apps.get_program(p, **({} if p == "wcc" else
+                                               {"source": s})), max_iters=5)
+        assert np.array_equal(np.nan_to_num(qr.values, posinf=1e30),
+                              np.nan_to_num(want.values, posinf=1e30)), p
+    meshy.close()
+    solo.close()
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"needs {n} devices, have {n - 1}"):
+        VSWEngine.from_store(root, mesh=n, **kw)
+
+
+def test_run_distributed_on_a_one_rank_nccl_group(dev, tmp_path):
+    """The superstep over NCCL (one rank, ``file://`` rendezvous) against
+    the single-device ``cuda`` engine: min programs bitwise, PageRank within
+    rtol 1e-4, atol 1e-9; its sums fold through the segment_combine
+    kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import run_distributed
+
+    g = rmat_graph(3000, 40000, seed=11)
+    eng = VSWEngine.from_graph(g, str(tmp_path / "s"), num_shards=4,
+                               window=4096, k=32, backend="cuda",
+                               device="cuda", selective=False)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        for prog, iters in ((apps.pagerank(), 10), (apps.sssp(0), 100),
+                            (apps.wcc(), 100)):
+            before = K.segment_combine.launches
+            got, it = run_distributed(g, prog, max_iters=iters)
+            launches = K.segment_combine.launches - before
+            want = eng.run(prog, max_iters=iters).values
+            if prog.combine == "sum":
+                assert launches == it
+                assert np.allclose(got, want, rtol=1e-4, atol=1e-9)
+            else:
+                assert np.array_equal(np.nan_to_num(got, posinf=1e30),
+                                      np.nan_to_num(want, posinf=1e30))
+    finally:
+        dist.destroy_process_group()
+        eng.close()

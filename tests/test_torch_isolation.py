@@ -47,6 +47,8 @@ import repro_torch.delta.recompact
 import repro_torch.delta.recovery
 import repro_torch.checkpoint
 import repro_torch.checkpoint.warm_state
+import repro_torch.core.distributed
+import repro_torch.launch.mesh
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 import torch
@@ -58,6 +60,8 @@ with tempfile.TemporaryDirectory() as d:
                               device="cpu") as eng:
         r = eng.run(apps.pagerank(), max_iters=3)
     assert r.values.shape == (200,)
+    with VSWEngine.from_store(d, device="cpu", mesh=2) as eng:
+        assert eng.run(apps.pagerank(), max_iters=3).values.shape == (200,)
     if not torch.cuda.is_available():
         try:
             VSWEngine.from_store(d)

@@ -296,7 +296,7 @@ def test_other_families_raise(arch):
 
 
 def test_mesh_context_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         ShardingCtx(mesh=object())
 
 

@@ -469,3 +469,71 @@ def test_shard_load_error_span_recorded(tmp_path):
         and "error" in e.get("args", {})
     ]
     assert errs and any(e["args"]["shard"] == 2 for e in errs)
+
+
+# ---------------------------------- conservation on a fused mesh sweep + updates
+@pytest.mark.parametrize("backend", ["numpy", "cuda"])
+def test_conservation_fused_mesh_sweep_with_updates(tmp_path, backend):
+    g = rmat_graph(900, 14000, seed=21)
+    with _mk_service(
+        tmp_path, "mesh", g,
+        backend=backend, mesh=4, max_lanes=4, max_groups=2,
+        session_entries=0,
+    ) as svc:
+        with svc.submit_batch():
+            futs = [
+                svc.submit("bfs", 0),
+                svc.submit("sssp", 5),
+                svc.submit("ppr", 9, max_iters=6),
+            ]
+        for f in futs:
+            f.result()
+        svc.apply_updates(inserts=[(10, 11), (12, 13)],
+                          deletes=[(0, 1)]).result()
+        with svc.submit_batch():
+            futs = [svc.submit("bfs", 2), svc.submit("wcc", 0)]
+        for f in futs:
+            f.result()
+    # close() joined the worker: every sweep has booked its stats.  Mesh
+    # sweeps declared per-iteration device identities; replaying them is
+    # THE shared conservation check.
+    snap = svc.metrics_snapshot()
+    assert svc.metrics.num_checks > 0
+    assert any("device_shards" in c[0] for c in svc.metrics._checks)
+    assert svc.metrics.verify_conservation() == []
+    assert snap["conservation_violations"] == []
+    assert snap["stages"]["iter_s"]["count"] > 0
+    assert snap["query_latency_s"]["count"] == 5
+    assert snap["queue_wait_s"]["count"] == 5
+
+
+def test_device_identities_catch_violations():
+    """The mesh identities of IterStats, SweepIterStats and ExecStats."""
+    base = dict(iteration=0, shards_processed=3, shards_skipped=0,
+                bytes_read=300)
+    it = dict(time_s=0.1, cache_hits=0, cache_misses=0, active_count=1,
+              active_ratio=0.1, selective_on=False, dispatches=2)
+    sw = dict(live_lanes=2, selective_on=False, retired=0, backfilled=0,
+              time_s=0.1)
+    good = dict(device_shards=(2, 1), device_bytes=(200.0, 100.0),
+                device_dispatches=(1, 1))
+    ok = MetricsRegistry()
+    ok.ingest(IterStats(**base, **it, **good))
+    ok.ingest(SweepIterStats(**base, **sw, **good))
+    ok.ingest(ExecStats(dispatches=2, shards_executed=3,
+                        device_shards={0: 2, 1: 1},
+                        device_dispatches={0: 1, 1: 1}))
+    assert ok.verify_conservation() == []
+    for bad in (dict(good, device_shards=(2, 2)),
+                dict(good, device_bytes=(200.0, 99.0))):
+        for cls, kw in ((IterStats, it), (SweepIterStats, sw)):
+            reg = MetricsRegistry()
+            reg.ingest(cls(**base, **kw, **bad))
+            with pytest.raises(ConservationError):
+                reg.verify_conservation()
+    reg = MetricsRegistry()
+    reg.ingest(IterStats(**base, **it, **dict(good, device_dispatches=(2, 1))))
+    reg.ingest(ExecStats(dispatches=1, shards_executed=3,
+                         device_shards={0: 2, 1: 1},
+                         device_dispatches={0: 1, 1: 1}))
+    assert len(reg.verify_conservation(strict=False)) == 2

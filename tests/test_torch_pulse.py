@@ -675,6 +675,27 @@ def test_loadgen_bitwise_oracle_across_versions(tmp_path):
     edges = rng.integers(0, n, size=(6000, 2)).astype(np.int64)
     g = from_edge_list(edges, n)
     svc = _mk_service(tmp_path, "svc", g, max_lanes=8)
+    # The publish point, made deterministic: a closed loop's clients resubmit
+    # as soon as they are answered, so backfill can keep one sweep alive
+    # for the whole run while every staged batch waits behind it (all 30
+    # records then land at version 0).  Here a client submits its next
+    # query only once every staged batch has published, so the running
+    # sweep drains, the batch publishes, and the queries after it run on
+    # the new version.
+    staged = []
+    apply_updates, submit = svc.apply_updates, svc.submit
+
+    def staging(**kw):
+        fut = apply_updates(**kw)
+        staged.append(fut)
+        return fut
+
+    def after_publish(*args, **kw):
+        for fut in list(staged):
+            fut.result(timeout=120)
+        return submit(*args, **kw)
+
+    svc.apply_updates, svc.submit = staging, after_publish
     wl = Workload(classes=MIX, seed=5, update_every=10, update_batch=6)
     rep = LoadGenerator(svc, wl, mode="closed", concurrency=4,
                         total_ops=30).run()

@@ -1,6 +1,5 @@
 """Ragged dispatch in the port: one ragged launch per shard batch covering
-ALL fusion groups (DESIGN.md §14), carried from ``tests/test_ragged.py``
-without the mesh cases (ROADMAP Queue 1 item 8).
+ALL fusion groups (DESIGN.md §14), carried from ``tests/test_ragged.py``.
 
 1. **Padding algebra** — :func:`ragged_lane_pad` never wastes more lanes
    than the per-group power-of-two padding; :func:`ragged_lane_concat`
@@ -15,6 +14,8 @@ without the mesh cases (ROADMAP Queue 1 item 8).
 4. **Conserved accounting** — a ragged sweep books one dispatch per
    flushed batch, and the declared identities replay clean through
    ``MetricsRegistry.verify_conservation``.
+5. **Mesh** — on an engine booted with ``mesh=D`` a ragged sweep books
+   one dispatch per flush and stays bitwise the single-device run.
 """
 
 import time
@@ -303,3 +304,32 @@ def test_ragged_exec_stats_identities():
     ))
     with pytest.raises(ConservationError):
         bad.verify_conservation()
+
+
+# ------------------------------------------------------------------- mesh
+@pytest.mark.parametrize("backend", ["numpy", "cuda"])
+@pytest.mark.parametrize("D", [1, 2, 8])
+def test_ragged_mesh_bitwise(tmp_path, backend, D):
+    """A ragged mesh sweep books one dispatch per flush (each slot holding
+    shards one more) and stays bitwise the single-device engine, the
+    ``numpy`` emulation as the reference's does."""
+    g = rmat_graph(300, 3000, seed=145)
+    eng = _mk_engine(tmp_path, f"m{D}", g, backend=backend, mesh=D,
+                     batch_shards=2)
+    ref = _mk_engine(tmp_path, "mref", g, backend=backend)
+    bfs, ppr = apps.lane_bfs(), apps.lane_ppr()
+    sweep = FusedSweep(eng, ragged=True, batch_shards=2)
+    res = sweep.run([
+        [LaneSeed(source=2, max_iters=10, token="b", program=bfs)],
+        [LaneSeed(source=7, max_iters=6, token="p", program=ppr)],
+    ])
+    by_tok = {r.token: r for r in res}
+    for tok, src, prog, iters in (("b", 2, "bfs", 10), ("p", 7, "ppr", 6)):
+        sr = _solo(ref, prog, src, iters)
+        assert np.array_equal(_norm(by_tok[tok].values), _norm(sr.values))
+    for s in sweep.iter_stats:
+        assert s.dispatches == s.batches == s.ragged_dispatches
+        assert len(s.device_dispatches) == D
+        assert sum(s.device_dispatches) >= s.dispatches
+    eng.close()
+    ref.close()

@@ -380,10 +380,12 @@ def test_shard_load_amortization(tmp_path):
 
 
 def test_unported_pieces_raise_with_their_roadmap_item(tmp_path):
-    """Only mesh serving (item 8) still raises; item 6's pieces (updates,
-    compaction, versions, warm restarts, background compaction) run since
-    the delta port, and item 7's telemetry ticker since the observability
-    port (``tests/test_torch_pulse.py`` holds it to the reference)."""
+    """Nothing of the graph service raises any more: item 6's pieces
+    (updates, compaction, versions, warm restarts, background compaction)
+    run since the delta port, item 7's telemetry ticker since the
+    observability port (``tests/test_torch_pulse.py`` holds it to the
+    reference), and item 8's mesh serving since the multi-device port
+    (``tests/test_torch_mesh_sweep.py``)."""
     g = rmat_graph(200, 2000, seed=51)
     svc = _mk_service(tmp_path, "np", g, backend="numpy", max_lanes=2)
     root = str(tmp_path / "np")
@@ -404,8 +406,10 @@ def test_unported_pieces_raise_with_their_roadmap_item(tmp_path):
     with GraphService.from_store(root, device="cpu", backend="numpy",
                                  auto_compact_runs=1) as auto:
         assert auto.stats()["shards_compacted"] == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        GraphService.from_store(root, device="cpu", mesh=2)
+    with GraphService.from_store(root, device="cpu", backend="numpy",
+                                 mesh=2) as meshy:
+        assert meshy.stats()["mesh_devices"] == 2
+        assert meshy.query("bfs", 0, max_iters=5).iterations >= 1
 
 
 def test_default_device_is_the_card(tmp_path):

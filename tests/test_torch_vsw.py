@@ -198,8 +198,15 @@ def test_executor_selection_and_errors():
 
 
 def test_mesh_not_ported_yet(port_store):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        VSWEngine.from_store(port_store, backend="numpy", device="cpu", mesh=2)
+    """The mesh engines at D=2 (numpy emulation, plain torch) run bitwise
+    the single-device engines (the name is kept from before the mesh was
+    ported; ``tests/test_torch_mesh_sweep.py`` holds the rest)."""
+    for backend in ("numpy", "torch"):
+        want = _run(port_store, apps.sssp(0), backend=backend)
+        got = _run(port_store, apps.sssp(0), backend=backend, mesh=2)
+        assert np.array_equal(got.values, want.values), backend
+        assert all(sum(i.device_shards) == i.shards_processed
+                   for i in got.iterations)
 
 
 def test_default_device_is_the_card(port_store):

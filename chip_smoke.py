@@ -55,7 +55,33 @@ line):
             timed at S=544 and S=32768 beside its bound (K and V rows of
             valid slots, q, o and the mask over 3.35 TB/s), the plain
             version and one masked SDPA call.
-6. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
+6. lm_families  the remaining model families through the launcher
+            (``launch.serve.serve``, attn_impl "cuda", f32 master weights
+            from the seed, bf16 activations): PaliGemma-3B (18 layers, 256
+            patch embeddings), Whisper-large-v3 (32 + 32 layers, 1500
+            frames) and xLSTM-350M at full width and depth, Moonshot-v1
+            at full width and 8 of its 48 layers (5.2 B parameters), Jamba
+            at its smoke config (one group at full width does not fit).
+            First the flash kernel at their new shapes against its plain
+            version (bf16 within 5e-2 and 2^-6 x max |plain|) on the arm its
+            head dim names, timed beside its bound, the plain version and one
+            SDPA call: whisper's encoder (S=1500, D=64, non-causal), its
+            cross-attention at prefill (Sq=512, Skv=1500) and at a decode
+            step (Sq=1), and PaliGemma's MQA prefill (Hq=8, Hkv=1, S=768,
+            D=256, causal; the scalar kernel).  Then each arch serves 4
+            requests of 512 tokens in one batch, 16 out, its frontend inputs
+            drawn as the launcher draws them: token ids in range; flash
+            launches equal to the self-attention layers at prefill plus
+            whisper's 32 encoder layers and its cross-attention at prefill
+            and at every decode step, every one on the arm the dispatch
+            rule names for its head dim (the split printed); the first
+            batch's last-position logits against attn_impl "torch" on the
+            same weights (lm_serve's tolerance, error and margin printed);
+            prefill ms, decode ms a step, tokens/s, parameters and bytes.
+            Moonshot is served again from the seed, bitwise the same, and
+            one prefill each of Moonshot and Whisper is traced (diagnostic:
+            busy share and top device ops).
+7. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
             prefetch_depth=2, cache_bytes=1 GiB: PageRank (5 iterations),
             SSSP and WCC (to convergence) on backend ``cuda`` with
@@ -64,7 +90,7 @@ line):
             the card at the same depth (min/max bitwise, PageRank within
             rtol=1e-4, atol=1e-9).  The kernels' launch counters must equal
             the executor's dispatches.
-7. serve    the serving path on the same store: ``GraphService`` with
+8. serve    the serving path on the same store: ``GraphService`` with
             backend ``cuda``, device_resident=True, batch_shards=4,
             max_lanes=16, max_groups=2 answers 32 BFS/SSSP/PPR queries
             (max_iters=20) in one fusion set through the ragged lane
@@ -76,7 +102,7 @@ line):
             (BFS/SSSP bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
             must equal the sweeps' dispatches, and the service's metrics
             must show no conservation violation.
-8. mesh     the multi-device path at one slot (one H100) on the same
+9. mesh     the multi-device path at one slot (one H100) on the same
             store: a resident ``cuda`` engine booted with ``mesh=1``
             (batch_shards=4) runs PageRank, SSSP and WCC (3 iterations
             each), each bitwise the single-device engine with the same
@@ -95,7 +121,7 @@ line):
             engine, one segment_combine launch a superstep), SSSP and WCC to
             convergence (bitwise, the same iterations).  Per-iteration
             times of both engines and each superstep's time are printed.
-9. timing   each ELL kernel, its plain version and a one-call library yardstick
+10. timing  each ELL kernel, its plain version and a one-call library yardstick
             timed with CUDA events, L2 flushed before each call, on the
             main path's first batch of shards (the lane kernels at 16 and
             32 lanes), beside its bound: the bytes the function must move
@@ -109,7 +135,7 @@ line):
             recorded beside the new ones.  The window staging probe times
             the masked and the lanes kernels with every tile gathering
             from window 0, which stays in L2.
-10. sentinel ell_update(variant="sentinel") on the main path's first batch
+11. sentinel ell_update(variant="sentinel") on the main path's first batch
             (shards 0-3) with PageRank's first messages, sum/min/max: its
             3 launches counted; partials and update bitwise the masked
             ones for each combine; against the plain version min/max
@@ -117,7 +143,7 @@ line):
             messages are below 2^-21: a fixed atol would hold nothing);
             timed beside the masked kernel, its bound the whole index
             plane, the gathered message sectors, tile_window and the output.
-11. bloom   one BloomFilter32 per shard over the scheduler's exact source
+12. bloom   one BloomFilter32 per shard over the scheduler's exact source
             sets; active sets of 2^10 and 2^16 random vertices and every
             vertex: contains per filter and any_active_shards (48 + 3
             launches counted) bitwise against the host filters, no shard
@@ -132,13 +158,13 @@ line):
             turn on one stream; and contains on one filter at each set
             size beside its bound (ids, touched sectors and bytes out, or
             its operations).
-12. trace   (diagnostic: a profiler error leaves "not measured" and does
+13. trace   (diagnostic: a profiler error leaves "not measured" and does
             not fail the run) one resident PageRank run of 3 iterations and
             one resident fusion set of 32 queries (max_iters=5) under
             torch.profiler: each kernel's device time as the engine
             launches it, beside the engine's kernel_s, and the card's busy
             share of the run.
-13. ingest  the main phase's graph written as a binary edge file
+14. ingest  the main phase's graph written as a binary edge file
             (``write_edge_file``, 8 B an edge) and stream-ingested
             (``ShardStore.ingest``, the default 64 MiB spill budget, one
             finalize worker) into a second store by a child process: every
@@ -148,7 +174,7 @@ line):
             finalize seconds (trace spans), ``IngestStats`` and the child's
             peak RSS are recorded.  npz members carry their write time, so
             the script pins the zip clock for every store it writes.
-14. delta   live mutations on the ingested copy: a resident ``cuda``
+15. delta   live mutations on the ingested copy: a resident ``cuda``
             ``GraphService`` (batch_shards=4, max_lanes=16, max_groups=2)
             answers 16 BFS/SSSP/WCC/PPR queries (max_iters=2; version 0),
             then two batches of 2^15 uniform inserts and 2^13 deletes of
@@ -156,8 +182,8 @@ line):
             and 2, every shard touched); at each version the queries are asked
             again under the tracer: no dirty shard is served from the
             resident map (``shard.load`` spans), at least one answer moved,
-            two queries (BFS and SSSP at version 1, WCC and PPR at version
-            2) are bitwise a solo non-resident ``cuda`` ``VSWEngine`` opened
+            one query (BFS at version 1, PPR at version 2; cut from two
+            a version) is bitwise a solo non-resident ``cuda`` ``VSWEngine`` opened
             after the publish, and at version 1 a ``torch`` service agrees
             (BFS/SSSP/WCC bitwise, PPR within rtol=1e-4, atol=1e-9).
             ``compact()`` leaves no dirty shard; after ``bump_graph_version``
@@ -171,13 +197,13 @@ line):
             bitwise, a new query bitwise the cold service's.  Publish,
             sweep, compaction and boot seconds are recorded (host work on
             the card's machine: dirty shards decode on the host).
-15. pulse   the load harness on the ingested copy (after ``delta``): a
+16. pulse   the load harness on the ingested copy (after ``delta``): a
             resident ``cuda`` ``GraphService`` (batch_shards=4, max_lanes=16,
             max_groups=2, no session cache) with the telemetry ticker
             (0.5 s windows) and three SLOs (latency p99 under 60 s, budget
             0.01; admission errors, 0.05; queue-wait share, 0.95) answers
             ``benchmarks/bench_graphmp.py``'s fig_qps mix (BFS weight 2,
-            SSSP, WCC, PPR at damping 0.85; max_iters=4, cut from 6; seed
+            SSSP, WCC, PPR at damping 0.85; max_iters=3, cut from 6; seed
             29).  A closed loop (8 workers, submit_batch chunks of 4, 64
             ops, 16 of them warm-up, no mutations): every record bitwise a solo
             resident ``cuda`` ``VSWEngine``.  An open loop under the tracer
@@ -286,6 +312,27 @@ LM_DEFAULT_PROMPT, LM_DEFAULT_GEN = 24, 16  # the launcher's defaults
 #: layers.  The parity tests' bf16 tolerance: rtol 2e-2, atol 2e-2 x
 #: max(1, max |logit|) (tests/test_torch_lm.py).
 LM_RTOL = LM_ATOL = 2e-2
+#: the lm_families phase: arch, decoder layers kept (None: all), and whether
+#: it runs at smoke_config.  moonshot's 48 layers hold about 28 B parameters
+#: (112 GB in f32): 8 keep its full width in 5.2 B (21 GB); jamba cannot
+#: hold one group of 8 at full width (its 4 MoE layers alone about 39 B
+#: parameters): it runs at its smoke config
+LM_FAMILIES = (("paligemma-3b", None, False), ("whisper-large-v3", None, False),
+               ("xlstm-350m", None, False), ("moonshot-v1-16b-a3b", 8, False),
+               ("jamba-1.5-large-398b", None, True))
+FAM_REQUESTS, FAM_BATCH, FAM_PROMPT, FAM_GEN = 4, 4, 512, 16
+FAM_TRACED = ("moonshot-v1-16b-a3b", "whisper-large-v3")  # one traced prefill each
+FAM_REPEAT = ("moonshot-v1-16b-a3b",)  # served again from the seed, bitwise
+#: flash_attention at the families' shapes (B, Hq, Hkv, Sq, Skv, D, causal):
+#: whisper's encoder, its cross-attention at prefill and at a decode step,
+#: and paligemma's MQA prefill over 256 patches + 512 tokens (D=256: the
+#: scalar kernel)
+FLASH_FAMILY_SHAPES = {
+    "whisper encoder B=4 H=20 S=1500 D=64": (4, 20, 20, 1500, 1500, 64, False),
+    "whisper cross B=4 H=20 Sq=512 Skv=1500 D=64": (4, 20, 20, 512, 1500, 64, False),
+    "whisper cross decode B=4 H=20 Sq=1 Skv=1500 D=64": (4, 20, 20, 1, 1500, 64, False),
+    "paligemma B=4 Hq=8 Hkv=1 S=768 D=256 causal": (4, 8, 1, 768, 768, 256, True),
+}
 #: npz members carry their write time; every store this script writes gets
 #: this one, so two stores of the same graph can be compared byte for byte
 ZIP_CLOCK = 1_700_000_000.0
@@ -301,8 +348,8 @@ DELTA_PREFETCH = 8  # loader threads: dirty shards decode on the host
 #: max_iters cut from its 6: a fusion set formed with one query keeps one
 #: lane, so the open loop's queries after a publish ride dirty iterations
 #: (about 2.3 s each on the H100's machine) one at a time, and at 6 the
-#: phase took 155 s of its 150 s
-PULSE_SEED, PULSE_ITERS = 29, 4
+#: phase took 155 s of its 150 s; cut from 4 to 3 to pay for lm_families
+PULSE_SEED, PULSE_ITERS = 29, 3
 PULSE_SOLO_BUDGET_S = 40.0  # non-resident solo runs at the last version
 #: the main phase's non-resident cuda run (and its torch cross-check), cut
 #: from PageRank 5 and SSSP/WCC to convergence (6 iterations, about 3.7 s
@@ -956,9 +1003,10 @@ class Smoke:
                           replace=False)
         queries = [(DELTA_PROGS[i % 4], int(v)) for i, v in enumerate(srcs)]
         new_query = ("sssp", int(rng.choice(np.flatnonzero(meta.out_deg > 0))))
-        # one query a program over the two versions (cut from one a program
-        # at each version, about 47 s, to pay for the pulse phase)
-        solo_at = {1: [0, 1], 2: [2, 3]}
+        # one query a version, BFS then PPR (cut from one a program at each
+        # version, about 47 s, to pay for the pulse phase, then from two a
+        # version, a non-resident run of about 8 s each, for lm_families)
+        solo_at = {1: [0], 2: [3]}
         svc_kw = dict(device="cuda", device_resident=True, batch_shards=4,
                       max_lanes=16, max_groups=2, prefetch_depth=DELTA_PREFETCH)
         f = lambda v: np.nan_to_num(v, posinf=1e30)
@@ -2157,6 +2205,231 @@ class Smoke:
             rep[label] = d
             print(f"  flash_decode BHkv={BH} G={G} D={D} {label} bf16: {json.dumps(d)}")
 
+    # -------------------------------------------------------- LM families
+    def lm_families(self):
+        """The remaining model families served through the launcher on the
+        card (see the module docstring): the flash kernel at their new
+        shapes first, then each arch's batch."""
+        torch = self.torch
+        rep = self.report["lm_families"] = {"kernel": {}, "archs": {}}
+        self.family_kernel_checks(rep["kernel"])
+        for arch, layers, smoke in LM_FAMILIES:
+            rep["archs"][arch] = self.lm_family(arch, layers, smoke)
+            torch.cuda.empty_cache()
+
+    def family_kernel_checks(self, rep):
+        """flash_attention at the families' shapes against its plain
+        version (bf16 within 5e-2 and 2^-6 x max |plain|), on the arm the
+        dispatch rule names, then timed beside its bound, the plain version
+        and one SDPA call."""
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import kernel as FK
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(self.args.seed)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        tol = FLASH_TOL["bfloat16"]
+        for label, (B, Hq, Hkv, Sq, Skv, D, causal) in FLASH_FAMILY_SHAPES.items():
+            mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            q, k, v = mk(B, Hq, Sq, D), mk(B, Hkv, Skv, D), mk(B, Hkv, Skv, D)
+            tc0 = FK.flash_attention.tc_launches
+            out = FK.flash_attention(q, k, v, causal=causal)
+            tc = FK.flash_attention.tc_launches - tc0
+            want = FK.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            a, b = out.float(), want.float()
+            err = float((a - b).abs().max())
+            top = BF16_TOP_ULPS * float(b.abs().max())
+            self.errs["flash_attention"] = max(self.errs["flash_attention"], err)
+            if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=tol, atol=tol)
+                    and err <= top):
+                raise AssertionError(f"flash {label}: max err {err} (2^-6 bound {top})")
+            if bool(tc) != (D in FK.TC_HEAD_DIMS):
+                raise AssertionError(f"flash {label}: the dispatch rule took the "
+                                     f"wrong kernel")
+            pairs = Sq * Skv - (Sq * (Sq - 1) // 2 if causal else 0)  # causal: suffix
+            flops = 4 * B * Hq * pairs * D
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
+            bound = {"operations": flops / BF16_FLOPS_PER_S * 1e3,
+                     "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+            by = max(bound, key=bound.get)
+            reps = 5 if Sq * Skv * B * Hq > 1 << 26 else 20
+            d = dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D, causal=causal,
+                     kernel="tc" if tc else "scalar", max_abs_err=err,
+                     top_ulps_bound=top,
+                     ms=self.timed(lambda: FK.flash_attention(q, k, v, causal=causal),
+                                   reps),
+                     plain_ms=self.timed(lambda: FK.flash_attention_plain(
+                         q, k, v, causal=causal), 2),
+                     # Sq == Skv where causal: SDPA's top-left mask is the suffix one
+                     library_ms=self.timed(lambda: sdpa(q, k, v, is_causal=causal,
+                                                        enable_gqa=Hq != Hkv), reps),
+                     bound_ms=bound[by], bound_by=by, flops=flops, bytes=nbytes)
+            rep[label] = d
+            print(f"  flash_attention {label}: {json.dumps(d)}")
+            del q, k, v, out, want, a, b
+
+    def lm_family(self, arch, layers, smoke):
+        """One arch through ``launch.serve.serve`` on the card: see the
+        module docstring."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.config import smoke_config
+        from repro_torch.distributed.sharding import ShardingCtx
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.launch import serve as S
+        from repro_torch.models import model as M
+
+        a = self.args
+        cfg = configs.get_config(arch)
+        if smoke:
+            cfg = smoke_config(cfg)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cuda, plain = ShardingCtx(attn_impl="cuda"), ShardingCtx(attn_impl="torch")
+        d = {"config": cfg.name, "layers": cfg.num_layers,
+             "encoder_layers": cfg.num_encoder_layers if cfg.encdec else 0}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = M.init_params(a.seed, cfg, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        d["init_s"] = time.perf_counter() - t0
+        d["params"] = sum(p.numel() for p in params.parameters())
+        d["param_bytes"] = sum(p.numel() * p.element_size() for p in params.parameters())
+        print(f"  {cfg.name} ({cfg.num_layers} layers): {d['params']} parameters in "
+              f"f32 ({d['param_bytes']} B) initialised in {d['init_s']:.2f} s")
+
+        def run(p):
+            rng = np.random.default_rng(a.seed)
+            prompts = S.make_prompts(cfg, FAM_REQUESTS, FAM_PROMPT, rng)
+            return prompts, S.serve(p, cfg, cuda, prompts, batch=FAM_BATCH,
+                                    gen_len=FAM_GEN, keep_logits=True, rng=rng)
+
+        FK.flash_attention.launches = FK.flash_attention.tc_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        prompts, res = run(params)
+        launches, tc = FK.flash_attention.launches, FK.flash_attention.tc_launches
+        d["peak_bytes"] = torch.cuda.max_memory_allocated()
+        self.launches["flash_attention"] += launches
+        for row in res.done:
+            if row.shape != (FAM_GEN,) or row.min() < 0 or row.max() >= cfg.vocab_size:
+                raise AssertionError(f"{cfg.name}: token ids out of range: {row}")
+        d.update(requests=FAM_REQUESTS, batch=FAM_BATCH, prompt_len=FAM_PROMPT,
+                 prefix_len=S.prefix_len(cfg), gen_len=FAM_GEN, batches=res.batches,
+                 seconds=res.seconds, tokens_out=res.tokens_out,
+                 tokens_per_s=res.tokens_out / res.seconds,
+                 prefill_ms=[x * 1e3 for x in res.prefill_s],
+                 decode_ms_per_step=[x * 1e3 / (FAM_GEN - 1) for x in res.decode_s])
+
+        # flash launches: self-attention layers at each prefill; the
+        # encoder's layers and the cross-attention at prefill, and the
+        # cross-attention again at every decode step
+        attn = sum(cfg.layer_kind(i % cfg.group_period)[0] == "attn"
+                   for i in range(cfg.num_layers))
+        per_prefill = attn + (cfg.num_encoder_layers + attn if cfg.encdec else 0)
+        per_step = attn if cfg.encdec else 0
+        want = res.batches * (per_prefill + (FAM_GEN - 1) * per_step)
+        want_tc = want if cfg.head_dim in FK.TC_HEAD_DIMS else 0
+        d.update(flash_launches=launches, flash_tc_launches=tc,
+                 flash_scalar_launches=launches - tc)
+        print(f"  flash_attention launches {launches} (tensor-core {tc}, scalar "
+              f"{launches - tc}) = {res.batches} x ({per_prefill} at prefill + "
+              f"{FAM_GEN - 1} x {per_step} a decode step): {launches == want}; head "
+              f"dim {cfg.head_dim}: every launch on the "
+              f"{'tensor-core' if want_tc else 'scalar'} kernel: {tc == want_tc}")
+        if launches != want or tc != want_tc:
+            raise AssertionError(f"{cfg.name}: flash launches {launches} (tc {tc}), "
+                                 f"want {want} (tc {want_tc})")
+        print(f"  {FAM_REQUESTS} requests of {FAM_PROMPT} tokens "
+              f"(+{d['prefix_len']} prefix), {res.tokens_out} out in "
+              f"{res.seconds:.3f} s ({d['tokens_per_s']:.1f} tok/s); prefill ms "
+              f"{[round(x, 3) for x in d['prefill_ms']]}; decode ms a step "
+              f"{[round(x, 3) for x in d['decode_ms_per_step']]}; peak "
+              f"{d['peak_bytes']} B")
+
+        # the first batch again through the plain attention, same weights
+        # and the same frontend inputs
+        rng = np.random.default_rng(a.seed)
+        S.make_prompts(cfg, FAM_REQUESTS, FAM_PROMPT, rng)
+        first = {"tokens": torch.from_numpy(np.stack(prompts[::-1][:FAM_BATCH])).cuda()}
+        first.update((k, torch.from_numpy(v).cuda()) for k, v in
+                     S.frontend_inputs(cfg, rng, FAM_BATCH).items())
+        got = res.logits[0][0]
+
+        def against(ref):
+            ref = ref.float().cpu().numpy()
+            atol = LM_ATOL * max(1.0, float(np.abs(ref).max()))
+            return ref, {
+                "max_abs_err": float(np.abs(got - ref).max()), "atol": atol,
+                "rtol": LM_RTOL,
+                "margin": float((atol + LM_RTOL * np.abs(ref)
+                                 - np.abs(got - ref)).min()),
+                "max_abs_logit": float(np.abs(ref).max()),
+                "argmax_agree": float((got.argmax(-1) == ref.argmax(-1)).mean())}
+
+        with torch.inference_mode():
+            if cfg.num_experts:
+                # a router's top-k turns a one-ulp difference of the two
+                # attention paths into another expert where two nearly tie:
+                # the plain run takes the kernel run's experts (its own
+                # gates); the free run is reported beside it
+                (again, _), routes, _ = route_replay(
+                    None, lambda: M.prefill(params, first, cfg, cuda))
+                if not np.array_equal(again.float().cpu().numpy(), got):
+                    raise AssertionError(f"{cfg.name}: the prefill again is not "
+                                         f"bitwise the served one")
+                _, d["cuda_vs_torch_free_routing"] = against(
+                    M.prefill(params, first, cfg, plain)[0])
+                (ref, _), _, flips = route_replay(
+                    routes, lambda: M.prefill(params, first, cfg, plain))
+                d["cuda_vs_torch_free_routing"]["tokens_rerouted"] = flips
+                print(f"  prefill logits cuda vs torch, each routing its own: "
+                      f"{json.dumps(d['cuda_vs_torch_free_routing'])}")
+            else:
+                ref, _ = M.prefill(params, first, cfg, plain)
+        ref, d["cuda_vs_torch"] = against(ref)
+        print(f"  prefill logits cuda vs torch"
+              f"{', the same experts' if cfg.num_experts else ''}: "
+              f"{json.dumps(d['cuda_vs_torch'])}")
+        if not (np.isfinite(got).all() and np.allclose(got, ref, rtol=LM_RTOL,
+                                                       atol=d["cuda_vs_torch"]["atol"])):
+            raise AssertionError(f"{cfg.name}: prefill logits cuda vs torch: max "
+                                 f"err {d['cuda_vs_torch']['max_abs_err']}")
+
+        if arch in FAM_TRACED:  # diagnostic: busy share and top device ops
+            out = Path(a.out).parent / f"trace_lm_{arch}_prefill.json"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            try:
+                with torch.inference_mode():
+                    trace, _ = device_trace(
+                        torch, lambda: M.prefill(params, first, cfg, cuda), out)
+                flash = [v for k, v in trace["by_name"].items() if "flash" in k]
+                trace["flash_ms"] = sum(v["ms"] for v in flash)
+                trace["flash_launches"] = sum(v["launches"] for v in flash)
+                trace["by_name"] = dict(sorted(trace["by_name"].items(),
+                                               key=lambda kv: -kv[1]["ms"])[:10])
+            except Exception as exc:  # a diagnostic: report, do not fail
+                trace = {"not measured": repr(exc)}
+            d["trace_prefill"] = trace
+            print(f"  prefill trace: {json.dumps(trace)}")
+
+        if arch in FAM_REPEAT:  # the same seed again: new weights, the same bits
+            del params
+            torch.cuda.empty_cache()
+            params = M.init_params(a.seed, cfg, dtype=torch.float32, device="cuda")
+            _, again = run(params)
+            same = (all(np.array_equal(x, y) for x, y in zip(res.done, again.done))
+                    and all(np.array_equal(x, y) for bx, by in
+                            zip(res.logits, again.logits) for x, y in zip(bx, by)))
+            d["repeat_bitwise"] = same
+            print(f"  same seed again: tokens and logits bitwise equal: {same}")
+            if not same:
+                raise AssertionError(f"{cfg.name}: the run does not repeat bitwise")
+        del params, first, res
+        return d
+
     def sentinel(self):
         """ell_update(variant="sentinel") on the main path's first batch
         (shards 0-3) with PageRank's first messages, each combine: bitwise
@@ -2600,6 +2873,36 @@ def record_cache_attention(run):
     return calls
 
 
+def route_replay(record, run):
+    """Run ``run()`` with the MoE router's choices recorded (``record``
+    None) or replayed: each call then routes to ``record``'s experts for
+    that call, with gates from its own probabilities.  Returns what
+    ``run`` returns, each call's experts, and (replaying) the [layer,
+    token] routings whose own top-k set differed from the record's."""
+    from repro_torch.models import moe as MOE
+
+    inner, calls, flips = MOE._route, [], [0, 0]
+
+    def route(x, router_w, cfg):
+        probs, gates, eidx = inner(x, router_w, cfg)
+        if record is None:
+            calls.append(eidx.clone())
+            return probs, gates, eidx
+        want = record[len(calls)]
+        calls.append(want)
+        flips[0] += int((eidx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+        flips[1] += eidx.shape[0] * eidx.shape[1]
+        g = probs.gather(-1, want)
+        return probs, g / g.sum(-1, keepdim=True).clamp(min=1e-9), want
+
+    MOE._route = route
+    try:
+        kept = run()
+    finally:
+        MOE._route = inner
+    return kept, calls, {"differ": flips[0], "of": flips[1]}
+
+
 def graph_device_ops(torch, fn):
     """Device operations (kernels, memsets, copies) one call of ``fn``
     makes: the nodes of a CUDA graph that captures a call, after a warm-up
@@ -2685,6 +2988,7 @@ def main(argv=None) -> int:
         smoke.phase("lm_kernels", smoke.lm_kernels)
         smoke.phase("lm_serve", smoke.lm_serve)
         smoke.phase("lm_decode", smoke.lm_decode)
+        smoke.phase("lm_families", smoke.lm_families)
         smoke.phase("small_engine", smoke.small_engine)
         smoke.phase("main", smoke.main_path)
         if "main" not in smoke.failures:

@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 __all__ = ["he_init", "RMSNorm", "Linear", "Embedding", "rmsnorm",
-           "rope_frequencies", "apply_rope", "linear", "embed", "param"]
+           "rope_frequencies", "apply_rope", "sinusoidal_positions", "linear",
+           "embed", "param", "sigmoid", "silu", "gelu_tanh"]
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -64,6 +65,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """``[seq, d]`` f32: sines then cosines of ``pos / 10000^(2i/d)``,
+    built in numpy (float64) as the reference builds them."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10_000.0, 2 * i / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
+
+
+# -------------------------------------------------------------- activations
+# The reference's activations round after every operation in their dtype
+# (XLA's expansion of ``logistic`` and ``jax.nn.gelu``'s jaxpr; its
+# constants are rounded to the dtype first).  In bf16 that differs from
+# torch's fused ``F.silu``/``F.gelu`` in about a third of the values; a
+# router's top-k turns such a difference into another expert, so the
+# blocks written after the dense family use these forms.
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * sigmoid(x)
+
+
+#: jax.nn.gelu's constants 0.044715 and sqrt(2/pi), rounded to each dtype
+_GELU_C = {dt: tuple(float(c) for c in torch.tensor(
+    [0.044715, np.sqrt(2 / np.pi)], dtype=torch.float64).to(dt))
+    for dt in (torch.float32, torch.bfloat16, torch.float16)}
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``, op by op."""
+    c1, c2 = _GELU_C[x.dtype]
+    inner = x + c1 * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(c2 * inner)))
 
 
 # ------------------------------------------------------------------- linear

@@ -1,19 +1,26 @@
-"""Top-level model API: init / forward / prefill / decode_step, dense family.
+"""Top-level model API: init / forward / prefill / decode_step.
 
-The entry points the serving launcher uses.  Batch layouts, as in the
-reference::
+The entry points the serving launcher uses, for every registered arch.
+Batch layouts, as in the reference::
 
     prefill: {"tokens": [B,S] integer}
+             (+ "patch_embeds": [B,prefix,d] (vlm) | "frames": [B,T,d] (audio))
     decode:  tokens [B,1], cache_index int, the caches pytree
 
-Cache layout: ``{"stack": {"layer_0": {"k", "v"}}, "memory": None}`` with
-K/V leaves ``[num_layers, B, S, Hkv, hd]`` in bf16.  ``decode_step``
-writes the new token's K/V into the caches in place (the reference donates
-the cache buffers) and returns the same dict.
+Cache layout: ``{"stack": {"layer_j": {...}}, "memory": enc_out | None}``.
+``stack`` holds one entry for each layer of a group (``j <
+cfg.group_period``), its leaves stacked over the groups ``[num_groups,
+...]``: attention ``k``/``v [G, B, S, Hkv, hd]`` in bf16, SSD and mLSTM
+``h`` (f32) and ``conv [G, B, 3, d_inner]``, sLSTM ``h``/``c [G, B, H, P]``
+(f32).  ``memory`` is whisper's encoder output, computed once at prefill
+and carried so decode steps never re-run the encoder.  ``decode_step``
+writes each layer's new K/V or state into the caches in place (the
+reference donates the cache buffers) and returns the same dict.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -24,29 +31,47 @@ from ..core.executor import resolve_device
 from ..distributed.sharding import ShardingCtx
 from . import common as C
 from . import transformer as T
+from .attention import self_attention
+from .mlp import mlp
 
 __all__ = ["Model", "init_params", "forward", "prefill", "decode_step",
            "init_decode_caches", "pad_caches"]
 
 
-class Model(nn.Module):
-    """The parameters of a dense decoder: ``embed``, ``layers`` (one
-    :class:`~repro_torch.models.transformer.Block` each), ``final_norm``
-    and, unless the embeddings are tied, ``lm_head``.  Drawn from ``gen``
-    in that order, or left uninitialised (to be loaded) without one."""
+class Encoder(nn.Module):
+    """Whisper's encoder: ``layers`` (attention + gelu MLP blocks of
+    :func:`_encoder_cfg`) and ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, *, gen: Optional[torch.Generator] = None,
                  device, dtype=torch.float32):
         super().__init__()
-        T.check_supported(cfg)
+        enc = _encoder_cfg(cfg)
+        kw = dict(device=device, dtype=dtype)
+        self.layers = nn.ModuleList(T.Block(enc, 0, gen=gen, **kw)
+                                    for _ in range(enc.num_layers))
+        self.final_norm = C.RMSNorm(cfg.d_model, **kw)
+
+
+class Model(nn.Module):
+    """The parameters of a model: ``embed``, ``layers`` (layer ``i`` a
+    :class:`~repro_torch.models.transformer.Block` of kind
+    ``cfg.layer_kind(i % cfg.group_period)``), ``final_norm``, ``lm_head``
+    unless the embeddings are tied, and ``encoder`` for an
+    encoder-decoder.  Drawn from ``gen`` in that order, or left
+    uninitialised (to be loaded) without one."""
+
+    def __init__(self, cfg: ModelConfig, *, gen: Optional[torch.Generator] = None,
+                 device, dtype=torch.float32):
+        super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed = C.Embedding(cfg.vocab_size, cfg.d_model, gen=gen, **kw)
-        self.layers = nn.ModuleList(T.Block(cfg, gen=gen, **kw)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(T.Block(cfg, i % cfg.group_period, gen=gen, **kw)
+                                    for i in range(cfg.num_layers))
         self.final_norm = C.RMSNorm(cfg.d_model, **kw)
         self.lm_head = (None if cfg.tie_embeddings else
                         C.Linear(cfg.d_model, cfg.vocab_size, gen=gen, **kw))
+        self.encoder = Encoder(cfg, gen=gen, **kw) if cfg.encdec else None
 
 
 # ------------------------------------------------------------------- init
@@ -62,11 +87,31 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16, *,
     return Model(cfg, gen=gen, device=dev, dtype=dtype)
 
 
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(
+        cfg,
+        num_layers=cfg.num_encoder_layers,
+        encdec=False,
+        num_experts=0,
+        attn_every=0,
+        mlp_type="gelu",
+    )
+
+
 # --------------------------------------------------------------- backbone
+def _input(params: Model, x) -> torch.Tensor:
+    """A float input (numpy or torch) on the parameters' device, in f32."""
+    return torch.as_tensor(x, device=params.embed.table.device).float()
+
+
 def _embed_inputs(params: Model, batch, cfg: ModelConfig, ctx: ShardingCtx):
-    """Token embeddings and positions."""
+    """Token embeddings (+ the vision prefix) and positions."""
     tokens = torch.as_tensor(batch["tokens"], device=params.embed.table.device).long()
     x = C.embed(params.embed, tokens)
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        # precomputed patch embeddings prefix the token sequence
+        # (PaliGemma-style prefix-LM, causal mask retained)
+        x = torch.cat([_input(params, batch["patch_embeds"]).to(x.dtype), x], dim=1)
     if cfg.family in ("vlm",) or cfg.name.startswith("gemma"):
         # gemma-family embedding scaling, in the activation dtype
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
@@ -74,6 +119,34 @@ def _embed_inputs(params: Model, batch, cfg: ModelConfig, ctx: ShardingCtx):
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     x = ctx.ac(x, "batch", None, None)
     return x, positions
+
+
+def _encode(params: Model, batch, cfg: ModelConfig, ctx: ShardingCtx):
+    """Whisper-style encoder over (stub) audio frame embeddings ``frames
+    [B, T, d]``: bf16 frames plus sinusoidal positions, non-causal
+    attention + gelu blocks, the final norm."""
+    enc_cfg = _encoder_cfg(cfg)
+    x = _input(params, batch["frames"]).to(torch.bfloat16)
+    x = x + C.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    x = _run_encoder_stack(params.encoder.layers, x, enc_cfg, ctx)
+    return C.rmsnorm(params.encoder.final_norm, x, cfg.norm_eps)
+
+
+def _run_encoder_stack(layers: nn.ModuleList, x: torch.Tensor,
+                       enc_cfg: ModelConfig, ctx: ShardingCtx) -> torch.Tensor:
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    for blk in layers:
+        h = C.rmsnorm(blk.ln1, x, enc_cfg.norm_eps)
+        out, _ = self_attention(
+            blk.attn, h, positions, enc_cfg, causal=False, impl=ctx.attn_impl,
+            ac=ctx.ac if ctx.attn_seq_shard else None,
+            bf16_probs=ctx.attn_bf16_probs,
+        )
+        x = x + out
+        h2 = C.rmsnorm(blk.ln2, x, enc_cfg.norm_eps)
+        x = x + mlp(blk.mlp, h2, enc_cfg.mlp_type)
+    return x
 
 
 def _head(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx: ShardingCtx):
@@ -94,6 +167,8 @@ def forward(
 ):
     """Shared backbone.  Returns (logits, new_caches, aux).  ``remat`` is
     accepted for the reference's signature; nothing is trained here."""
+    if cfg.encdec and memory is None and mode != "decode":
+        memory = _encode(params, batch, cfg, ctx)
     x, positions = _embed_inputs(params, batch, cfg, ctx)
     if mode == "decode" and cache_index is not None:
         B, S = x.shape[0], x.shape[1]
@@ -110,8 +185,10 @@ def forward(
 # ---------------------------------------------------------------- serving
 def prefill(params: Model, batch, cfg: ModelConfig, ctx: ShardingCtx):
     """Full-sequence forward; returns (last_logits, caches)."""
-    logits, stack, _ = forward(params, batch, cfg, ctx, mode="prefill")
-    return logits[:, -1], {"stack": stack, "memory": None}
+    memory = _encode(params, batch, cfg, ctx) if cfg.encdec else None
+    logits, stack, _ = forward(params, batch, cfg, ctx, mode="prefill",
+                               memory=memory)
+    return logits[:, -1], {"stack": stack, "memory": memory}
 
 
 def decode_step(params: Model, tokens, caches, cache_index: int,
@@ -128,16 +205,23 @@ def decode_step(params: Model, tokens, caches, cache_index: int,
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_seq: int,
                        dtype=torch.bfloat16, *, device="cuda") -> Dict[str, Any]:
-    T.check_supported(cfg)
+    """Zero caches in the layout of the module docstring: attention K/V of
+    ``max_seq`` positions, SSM states, and for an encoder-decoder a zero
+    ``memory [batch, encoder_seq, d]`` (the reference's placeholder)."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    kv = {n: torch.zeros(shape, dtype=dtype, device=dev) for n in ("k", "v")}
-    return {"stack": {"layer_0": kv}, "memory": None}
+    memory = None
+    if cfg.encdec:
+        memory = torch.zeros((batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                             device=dev)
+    return {"stack": T.stacked_cache_init(cfg, batch, max_seq, dtype, device=dev),
+            "memory": memory}
 
 
 def pad_caches(caches, cfg: ModelConfig, *, max_seq: int):
-    """Grow prefill KV caches ([L,B,S,...]) to a decode budget of max_seq
-    (zeros after the prompt); other leaves pass through."""
+    """Grow prefill KV caches (``[G,B,S,Hkv,hd]``) to a decode budget of
+    max_seq (zeros after the prompt).  Only the 5-D attention ``k``/``v``
+    leaves have a sequence axis; SSM states (the 5-D ``h`` included), conv
+    states and ``memory`` pass through unchanged."""
 
     def one(name, leaf):
         if name in ("k", "v") and isinstance(leaf, torch.Tensor) and leaf.dim() == 5:

@@ -1,10 +1,12 @@
 """Load a reference parameter tree into the port's model.
 
 The reference keeps parameters as a pytree whose layer leaves are stacked
-``[num_groups, ...]`` under ``groups/layer_0/...`` (group period 1 for the
-dense family).  :func:`params_from_jax` takes that tree as nested dicts of
-numpy arrays and copies each leaf into the parameter of the same path, so
-both packages compute with the same numbers.
+``[num_groups, ...]`` under ``groups/layer_j/...`` (``j`` below the group
+period), and an encoder's under ``encoder/groups/layer_0/...``.
+:func:`params_from_jax` takes that tree as nested dicts of numpy arrays
+and copies each leaf into the parameter of the same path, group ``g`` of
+``layer_j`` into ``layers[g * period + j]``, so both packages compute with
+the same numbers.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from ..config import ModelConfig
 from ..core.executor import resolve_device
-from .model import Model
+from .model import Model, _encoder_cfg
 
 __all__ = ["params_from_jax"]
 
@@ -34,7 +36,9 @@ def _param(module, path) -> torch.nn.Parameter:
     for name in path:
         obj = getattr(obj, name, None)
         if obj is None:
-            raise KeyError(f"no parameter at {'/'.join(path)}")
+            break
+    if not isinstance(obj, torch.nn.Parameter):
+        raise KeyError(f"no parameter at {'/'.join(path)}")
     return obj
 
 
@@ -47,6 +51,25 @@ def _copy(dst: torch.nn.Parameter, src, path) -> None:
     dst.data.copy_(t)
 
 
+def _copy_groups(layers, prefix, period: int, path, arr, done) -> None:
+    """``groups/layer_j/<rest>`` leaves ``[G, ...]`` into ``layers[g *
+    period + j]``."""
+    name = path[1]
+    idx = name.removeprefix("layer_")
+    j = int(idx) if idx != name and idx.isdigit() else -1
+    if not 0 <= j < period:
+        raise KeyError(f"{'/'.join(path)}: no {name} in a group of {period}")
+    arr = np.asarray(arr, dtype=np.float32)
+    groups = len(layers) // period
+    if arr.shape[0] != groups:
+        raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} groups, {groups} in "
+                         f"the model")
+    for g in range(groups):
+        i = g * period + j
+        _copy(_param(layers[i], path[2:]), arr[g], path)
+        done.add(prefix + ("layers", str(i)) + path[2:])
+
+
 def params_from_jax(tree: Dict, cfg: ModelConfig, *, device="cuda") -> Model:
     """A float32 :class:`Model` holding ``tree``'s numbers (every parameter
     must be present, and nothing else)."""
@@ -55,16 +78,10 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *, device="cuda") -> Model:
     done = set()
     for path, arr in _leaves(tree):
         if path[0] == "groups":
-            if path[1] != "layer_0":
-                raise KeyError(f"{'/'.join(path)}: the dense family has one "
-                               f"layer a group")
-            arr = np.asarray(arr, dtype=np.float32)
-            if arr.shape[0] != len(model.layers):
-                raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} groups, "
-                                 f"{len(model.layers)} layers")
-            for i, layer in enumerate(model.layers):
-                _copy(_param(layer, path[2:]), arr[i], path)
-                done.add(("layers", str(i)) + path[2:])
+            _copy_groups(model.layers, (), cfg.group_period, path, arr, done)
+        elif path[:2] == ("encoder", "groups") and model.encoder is not None:
+            _copy_groups(model.encoder.layers, ("encoder",),
+                         _encoder_cfg(cfg).group_period, path[1:], arr, done)
         else:
             _copy(_param(model, path), arr, path)
             done.add(path)

@@ -1,18 +1,22 @@
-"""Decoder assembly for the dense family: attention + dense MLP blocks.
+"""Decoder assembly: heterogeneous blocks, the group stack, KV/SSM caches.
 
-The reference stacks each group's parameters as ``[num_groups, ...]`` and
-runs the stack as one ``lax.scan``; here the layers are an
-``nn.ModuleList`` walked by a Python loop.  Caches keep the reference's
-stacked layout at the model's public functions: ``{"layer_0": {"k", "v"}}``
-with leaves ``[num_layers, B, S, Hkv, hd]`` (group period 1).
+All ten architectures are assembled from the same machinery, as in the
+reference:
 
-Three modes: ``train`` (no caches), ``prefill`` (returns the stacked
-caches), ``decode`` (writes each layer's slice of the caches in place,
-static cache shapes, position-masked attention).
-
-Only the ``attn`` mixer with a dense MLP is ported.  The ``ssd``,
-``mlstm`` and ``slstm`` mixers, MoE, encoder-decoder and the vision
-frontend raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+- ``cfg.layer_kind(j)`` decides each layer's mixer (attn / ssd / mlstm /
+  slstm) and MLP (dense / moe / none).  Layer kinds repeat with period
+  ``cfg.group_period`` (1 for homogeneous stacks, 8 for Jamba, 4 for
+  xLSTM).  The reference stacks each group's parameters as
+  ``[num_groups, ...]`` and runs the stack as one ``lax.scan``; here the
+  layers are an ``nn.ModuleList`` walked by a Python loop, layer
+  ``g * period + j`` playing ``layer_j`` of group ``g``.
+- Caches keep the reference's stacked layout at the model's public
+  functions: ``{"layer_j": {...}}`` with leaves ``[num_groups, ...]``
+  (attention ``k``/``v [G, B, S, Hkv, hd]``; SSD and mLSTM ``h``, ``conv``;
+  sLSTM ``h``, ``c``).
+- Three modes: ``train`` (no caches), ``prefill`` (returns the stacked
+  caches), ``decode`` (writes each layer's slice of the caches in place,
+  static cache shapes, position-masked attention).
 """
 
 from __future__ import annotations
@@ -25,41 +29,66 @@ from torch import nn
 from ..config import ModelConfig
 from ..distributed.sharding import ShardingCtx
 from . import common as C
-from .attention import Attention, self_attention
+from . import moe as MOE
+from . import ssm as SSM
+from .attention import Attention, cross_attention, self_attention
 from .mlp import MLP, mlp
 
-__all__ = ["check_supported", "Block", "block_apply", "run_stack"]
+__all__ = ["Block", "block_apply", "block_cache_init", "run_stack",
+           "stacked_cache_init"]
 
-_LATER = "is not ported yet (ROADMAP Queue 1 item 10)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is
-    attention + dense MLP with no encoder and no vision frontend."""
-    if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder {_LATER}")
-    if cfg.frontend == "vision_stub":
-        raise NotImplementedError(f"{cfg.name}: the vision frontend {_LATER}")
-    for i in range(cfg.group_period):
-        mixer, mlp_kind = cfg.layer_kind(i)
-        if mixer != "attn":
-            raise NotImplementedError(f"{cfg.name}: the {mixer} mixer {_LATER}")
-        if mlp_kind != "dense":
-            raise NotImplementedError(f"{cfg.name}: the {mlp_kind} MLP {_LATER}")
+_MIXERS = {"ssd": (SSM.SSD, SSM.ssd_block, SSM.ssd_state_init),
+           "mlstm": (SSM.MLSTM, SSM.mlstm_block, SSM.mlstm_state_init),
+           "slstm": (SSM.SLSTM, SSM.slstm_block, SSM.slstm_state_init)}
 
 
 class Block(nn.Module):
-    """One decoder layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One layer of kind ``cfg.layer_kind(layer_in_group)``: ``ln1`` and
+    the mixer (``attn``, plus ``ln_x`` and ``xattn`` for an
+    encoder-decoder; or ``ssd``, ``mlstm``, ``slstm``), then ``ln2`` and
+    ``mlp`` or ``moe`` unless the MLP is ``none``."""
 
-    def __init__(self, cfg: ModelConfig, *, gen: Optional[torch.Generator] = None,
-                 device, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, layer_in_group: int, *,
+                 gen: Optional[torch.Generator] = None, device, dtype=torch.float32):
         super().__init__()
+        mixer, mlp_kind = cfg.layer_kind(layer_in_group)
         kw = dict(device=device, dtype=dtype)
         self.ln1 = C.RMSNorm(cfg.d_model, **kw)
-        self.attn = Attention(cfg, gen=gen, **kw)
-        self.ln2 = C.RMSNorm(cfg.d_model, **kw)
-        self.mlp = MLP(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, cfg.mlp_type,
-                       gen=gen, **kw)
+        if mixer == "attn":
+            self.attn = Attention(cfg, gen=gen, **kw)
+            if cfg.encdec:
+                self.ln_x = C.RMSNorm(cfg.d_model, **kw)
+                self.xattn = Attention(cfg, gen=gen, **kw)
+        else:
+            setattr(self, mixer, _MIXERS[mixer][0](cfg, gen=gen, **kw))
+        if mlp_kind == "dense":
+            self.ln2 = C.RMSNorm(cfg.d_model, **kw)
+            self.mlp = MLP(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, cfg.mlp_type,
+                           gen=gen, **kw)
+        elif mlp_kind == "moe":
+            self.ln2 = C.RMSNorm(cfg.d_model, **kw)
+            self.moe = MOE.MoE(cfg, gen=gen, **kw)
+
+
+def block_cache_init(cfg: ModelConfig, layer_in_group: int, batch: int,
+                     max_seq: int, dtype=torch.bfloat16, *, device) -> dict:
+    """Static-shape cache for one block (decode mode)."""
+    mixer, _ = cfg.layer_kind(layer_in_group)
+    if mixer == "attn":
+        shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}
+    return _MIXERS[mixer][2](cfg, batch, dtype, device=device)
+
+
+def stacked_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
+                       dtype=torch.bfloat16, *, device) -> dict:
+    """``{"layer_j": {name: [num_groups, ...]}}`` of zeros."""
+    out = {}
+    for j in range(cfg.group_period):
+        one = block_cache_init(cfg, j, batch, max_seq, dtype, device=device)
+        out[f"layer_{j}"] = {n: t[None].repeat(cfg.num_groups, *([1] * t.dim()))
+                             for n, t in one.items()}
+    return out
 
 
 def block_apply(
@@ -73,40 +102,60 @@ def block_apply(
     mode: str,  # train | prefill | decode
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
-    memory: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None,  # enc-dec cross-attention memory
 ):
-    """Returns (x, new_cache, aux_loss) for an attention + dense MLP layer
-    (``run_stack`` checks that ``cfg`` has only those)."""
+    """Returns (x, new_cache, aux_loss)."""
+    mixer, mlp_kind = cfg.layer_kind(layer_in_group)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Any] = {}
     h = C.rmsnorm(params.ln1, x, cfg.norm_eps)
-    if mode == "decode":
-        out, kvc = self_attention(
-            params.attn, h, positions, cfg,
-            kv_cache=(cache["k"], cache["v"]), cache_index=cache_index,
-            impl=ctx.attn_impl,
-        )
-        new_cache = {"k": kvc[0], "v": kvc[1]}
+
+    if mixer == "attn":
+        if mode == "decode":
+            out, kvc = self_attention(
+                params.attn, h, positions, cfg,
+                kv_cache=(cache["k"], cache["v"]), cache_index=cache_index,
+                impl=ctx.attn_impl,
+            )
+            new_cache = {"k": kvc[0], "v": kvc[1]}
+        else:
+            out, _ = self_attention(
+                params.attn, h, positions, cfg, impl=ctx.attn_impl,
+                block_k=ctx.attn_block_k,
+                ac=ctx.ac if ctx.attn_seq_shard else None,
+                bf16_probs=ctx.attn_bf16_probs,
+            )
+            if mode == "prefill":
+                # cache = computed K/V, written densely at positions 0..S (a
+                # second projection, as the reference computes it)
+                B, S, _ = h.shape
+                kh = C.linear(params.attn.wk, h).reshape(B, S, cfg.num_kv_heads,
+                                                         cfg.head_dim)
+                kh = C.apply_rope(kh, positions, cfg.rope_theta)
+                vh = C.linear(params.attn.wv, h).reshape(B, S, cfg.num_kv_heads,
+                                                         cfg.head_dim)
+                new_cache = {"k": kh, "v": vh}
+        x = x + out
+        if cfg.encdec and memory is not None:
+            hx = C.rmsnorm(params.ln_x, x, cfg.norm_eps)
+            x = x + cross_attention(params.xattn, hx, memory, cfg,
+                                    impl=ctx.attn_impl,
+                                    ac=ctx.ac if ctx.attn_seq_shard else None,
+                                    bf16_probs=ctx.attn_bf16_probs)
     else:
-        out, _ = self_attention(
-            params.attn, h, positions, cfg, impl=ctx.attn_impl,
-            block_k=ctx.attn_block_k,
-            ac=ctx.ac if ctx.attn_seq_shard else None,
-            bf16_probs=ctx.attn_bf16_probs,
-        )
-        if mode == "prefill":
-            # cache = computed K/V, written densely at positions 0..S (a
-            # second projection, as the reference computes it)
-            B, S, _ = h.shape
-            kh = C.linear(params.attn.wk, h).reshape(B, S, cfg.num_kv_heads,
-                                                     cfg.head_dim)
-            kh = C.apply_rope(kh, positions, cfg.rope_theta)
-            vh = C.linear(params.attn.wv, h).reshape(B, S, cfg.num_kv_heads,
-                                                     cfg.head_dim)
-            new_cache = {"k": kh, "v": vh}
-    x = x + out
-    h2 = C.rmsnorm(params.ln2, x, cfg.norm_eps)
-    x = x + mlp(params.mlp, h2, cfg.mlp_type)
+        out, st = _MIXERS[mixer][1](getattr(params, mixer), h, cfg, ctx,
+                                    state=cache if mode == "decode" else None)
+        if mode != "train":
+            new_cache = st
+        x = x + out
+
+    if mlp_kind == "dense":
+        h2 = C.rmsnorm(params.ln2, x, cfg.norm_eps)
+        x = x + mlp(params.mlp, h2, cfg.mlp_type)
+    elif mlp_kind == "moe":
+        h2 = C.rmsnorm(params.ln2, x, cfg.norm_eps)
+        y, aux = MOE.moe_ffn(params.moe, h2, cfg, ctx)
+        x = x + y
     x = ctx.ac(x, "batch", None, None)
     return x, new_cache, aux
 
@@ -119,30 +168,42 @@ def run_stack(
     ctx: ShardingCtx,
     *,
     mode: str,
-    caches=None,  # stacked {"layer_0": {"k", "v"}} (decode), None otherwise
+    caches=None,  # stacked {"layer_j": {name: [G, ...]}} (decode), else None
     cache_index: Optional[int] = None,
     memory: Optional[torch.Tensor] = None,
 ):
-    """Walk the layers.  Returns (x, new_caches, aux_total): ``prefill``
-    stacks the layers' K/V, ``decode`` returns ``caches`` written in place,
-    ``train`` returns empty caches."""
-    check_supported(cfg)
-    if memory is not None:
-        raise NotImplementedError(f"{cfg.name}: cross-attention memory {_LATER}")
+    """Walk the layers, layer ``g * period + j`` as ``layer_j`` of group
+    ``g``.  Returns (x, new_caches, aux_total): ``prefill`` stacks each
+    ``layer_j``'s caches over the groups, ``decode`` returns ``caches``
+    with each layer's slice written in place, ``train`` empty caches.
+    ``aux_total`` sums the aux loss of each group's last layer only: the
+    reference's group body adds the ``aux`` its layer loop ends with, so
+    Jamba's (period 8) counts layer 7 of each group, as it does there."""
+    period = cfg.group_period
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     built = []
     for i, layer in enumerate(layers):
+        g, j = divmod(i, period)
         cache = None
         if mode == "decode":
-            cache = {n: caches["layer_0"][n][i] for n in ("k", "v")}
-        x, nc, aux = block_apply(layer, x, positions, cfg, ctx, 0, mode=mode,
+            cache = {n: t[g] for n, t in caches[f"layer_{j}"].items()}
+        x, nc, aux = block_apply(layer, x, positions, cfg, ctx, j, mode=mode,
                                  cache=cache, cache_index=cache_index,
                                  memory=memory)
-        aux_total = aux_total + aux
+        if j == period - 1:
+            aux_total = aux_total + aux
+        if mode == "decode":
+            for n, t in nc.items():
+                if t is not cache[n]:  # an SSM state: attention wrote K/V in place
+                    cache[n].copy_(t)
         built.append(nc)
     if mode == "decode":
         return x, caches, aux_total
     if mode == "prefill":
-        return x, {"layer_0": {n: torch.stack([c[n] for c in built])
-                               for n in ("k", "v")}}, aux_total
-    return x, {"layer_0": {}}, aux_total
+        stacked = {}
+        for j in range(period):
+            group = built[j::period]
+            stacked[f"layer_{j}"] = {n: torch.stack([c[n] for c in group])
+                                     for n in group[0]}
+        return x, stacked, aux_total
+    return x, {f"layer_{j}": {} for j in range(period)}, aux_total

@@ -744,6 +744,95 @@ def test_lm_prefill_cuda_matches_torch_on_the_card(dev):
     assert all(np.array_equal(x, y) for x, y in zip(a.done, b.done))
 
 
+def _routes(run, record=None):
+    """``run()``'s MoE routings (each call's top-k experts), or ``run()``
+    with each call routed to ``record``'s experts, gates from its own
+    probabilities."""
+    from repro_torch.models import moe as MOE
+
+    inner, calls = MOE._route, []
+
+    def route(x, router_w, cfg):
+        probs, gates, eidx = inner(x, router_w, cfg)
+        if record is None:
+            calls.append(eidx)
+            return probs, gates, eidx
+        want = record[len(calls)]
+        calls.append(want)
+        g = probs.gather(-1, want)
+        return probs, g / g.sum(-1, keepdim=True).clamp(min=1e-9), want
+
+    MOE._route = route
+    try:
+        out = run()
+    finally:
+        MOE._route = inner
+    return calls if record is None else out
+
+
+FAMILIES = ["jamba-1.5-large-398b", "moonshot-v1-16b-a3b", "paligemma-3b",
+            "phi3.5-moe-42b-a6.6b", "whisper-large-v3", "xlstm-350m"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_lm_family_serves_on_the_card(dev, arch):
+    """Each arch's smoke config through the launcher on the card: prefill
+    logits with the kernel against the plain attention on the same
+    weights and frontend inputs; one flash launch per self-attention layer
+    at prefill, plus whisper's encoder layers and its cross-attention at
+    prefill and at every decode step, each on the arm its head dim names;
+    the MoE archs repeat bitwise."""
+    from repro_torch import configs
+    from repro_torch.config import smoke_config
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+
+    cfg = smoke_config(configs.get_config(arch))
+    params = M.init_params(0, cfg, dtype=torch.float32, device=dev)
+
+    def run():
+        rng = np.random.default_rng(0)
+        prompts = S.make_prompts(cfg, 3, 40, rng)
+        return prompts, S.serve(params, cfg, ShardingCtx(attn_impl="cuda"), prompts,
+                                batch=2, gen_len=5, keep_logits=True, rng=rng)
+
+    FK.flash_attention.launches = FK.flash_attention.tc_launches = 0
+    prompts, res = run()
+    attn = sum(cfg.layer_kind(i % cfg.group_period)[0] == "attn"
+               for i in range(cfg.num_layers))
+    cross = attn if cfg.encdec else 0
+    want = res.batches * (attn + cfg.num_encoder_layers * cfg.encdec + cross + 4 * cross)
+    assert FK.flash_attention.launches == want
+    assert FK.flash_attention.tc_launches == (want if cfg.head_dim in FK.TC_HEAD_DIMS
+                                              else 0)
+    rng = np.random.default_rng(0)
+    S.make_prompts(cfg, 3, 40, rng)
+    first = {"tokens": torch.from_numpy(np.stack(prompts[::-1][:2])).to(dev)}
+    first.update((k, torch.from_numpy(v).to(dev))
+                 for k, v in S.frontend_inputs(cfg, rng, 2).items())
+    with torch.inference_mode():
+        if cfg.num_experts:
+            # the plain run takes the kernel run's experts (its own gates):
+            # a near tie in the router's top-k turns a one-ulp difference of
+            # the two attention paths into another expert
+            routes = _routes(lambda: M.prefill(params, first, cfg,
+                                               ShardingCtx(attn_impl="cuda")))
+            ref = _routes(lambda: M.prefill(params, first, cfg,
+                                            ShardingCtx(attn_impl="torch")), routes)[0]
+        else:
+            ref, _ = M.prefill(params, first, cfg, ShardingCtx(attn_impl="torch"))
+    got, ref = res.logits[0][0], ref.float().cpu().numpy()
+    assert np.isfinite(got).all()
+    assert np.allclose(got, ref, rtol=2e-2, atol=2e-2 * max(1.0, np.abs(ref).max()))
+    if cfg.num_experts:
+        _, again = run()
+        assert all(np.array_equal(x, y) for x, y in zip(res.done, again.done))
+        assert all(np.array_equal(x, y) for bx, by in zip(res.logits, again.logits)
+                   for x, y in zip(bx, by))
+
+
 # ----------------------------------------------------------- entry kernels
 @pytest.mark.parametrize("window,k,tr", [(256, 8, 8), (512, 32, 8),
                                          (16384, 128, 8)])

@@ -30,6 +30,8 @@ import repro_torch.obs
 import repro_torch.obs.metrics
 import repro_torch.serve
 import repro_torch.models.model
+import repro_torch.models.moe
+import repro_torch.models.ssm
 import repro_torch.launch.serve
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.flash_attention.kernel
@@ -91,6 +93,11 @@ caches = M.pad_caches(caches, cfg, max_seq=6)
 logits, caches = M.decode_step(params, logits.argmax(-1)[:, None], caches, 5, cfg,
                                LOCAL_CTX)
 assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits.float()).all()
+for arch in ("moonshot-v1-16b-a3b", "xlstm-350m"):  # one MoE, one SSM prefill
+    fam = smoke_config(configs.get_config(arch))
+    logits, caches = M.prefill(M.init_params(0, fam, device="cpu"), {"tokens": tokens},
+                               fam, LOCAL_CTX)
+    assert logits.shape == (2, fam.vocab_size) and torch.isfinite(logits.float()).all()
 if not torch.cuda.is_available():
     try:
         M.init_params(0, cfg)

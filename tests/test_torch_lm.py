@@ -1,6 +1,8 @@
-"""The port's dense LM serving path against the reference on the same
-parameters: the reference's parameter tree (``smoke_config`` of every dense
-arch) is loaded into the port with ``params_from_jax``.
+"""The port's LM serving path against the reference on the same
+parameters: the reference's parameter tree (``smoke_config`` of every
+registered arch) is loaded into the port with ``params_from_jax``; batches
+carry ``patch_embeds`` and ``frames`` where the arch takes them, drawn as
+``tests/test_archs_smoke.py`` draws them.
 
 Logits are bf16 activations in both packages, rounded at other places:
 rtol = 2e-2 and atol = 2e-2 x max(1, max |logit|).  The 2e-2 is the
@@ -15,7 +17,31 @@ measured difference of the two logit rows (no such difference can flip
 the argmax); past a near tie a row's later tokens may differ
 legitimately, so its comparison stops there.  On the CPU ``attn_impl="cuda"`` runs the
 flash kernel's plain version.
+
+Four archs are compared with f32 activations (both packages' ``embed``
+patched to f32, so every layer computes in f32; whisper's encoder stays
+bf16 by design), at the same tolerance:
+
+- the MoE archs (moonshot-v1-16b-a3b, phi3.5-moe-42b-a6.6b, and jamba):
+  a router's top-k is discontinuous, so where two experts' probabilities
+  nearly tie, a one-ulp bf16 difference upstream (the flash kernel's f32
+  summation order, say) routes a token to another expert; in bf16 the
+  launcher test's first logits of moonshot differed by 1.73 so.  Routing
+  itself is held exactly on the same inputs in ``test_torch_families.py``.
+- jamba-1.5-large-398b and xlstm-350m: in bf16 the reference does not
+  meet the tolerance against itself.  On ``test_forward_matches_
+  reference``'s batch its compiled forward and the same forward op by op
+  (``jax.disable_jit``) differ by 2.69 (jamba, logits up to 4.19:
+  tolerance 0.084) and 0.039 (xlstm, logits up to 0.66: tolerance 0.02).
+  Jamba's residual stream reaches magnitude 35-45 through SSD and MoE
+  layers, so a one-ulp difference grows layer by layer and flips
+  routing; xlstm's head-wise norms rescale small mLSTM outputs.
+
+With f32 activations the port's forward is within 3e-4 (jamba), 5e-6
+(moonshot, phi) and 7e-6 (xlstm) of the reference's.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -37,9 +63,11 @@ from repro_torch.launch import serve as S
 from repro_torch.models import model as M
 from repro_torch.models.params import params_from_jax
 
-DENSE = [a for a in configs.list_archs()
-         if configs.get_config(a).family == "dense"]
-OTHER = [a for a in configs.list_archs() if a not in DENSE]
+ARCHS = configs.list_archs()
+DENSE = [a for a in ARCHS if configs.get_config(a).family == "dense"]
+#: compared with f32 activations (see the module docstring)
+F32_ARCHS = ("jamba-1.5-large-398b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+             "xlstm-350m")
 RTOL = ATOL = 2e-2
 CPU_TORCH = ShardingCtx(attn_impl="torch")
 
@@ -50,6 +78,24 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def activations(monkeypatch):
+    """``activations(arch)``: patch both packages' token embedding to f32
+    for the archs of :data:`F32_ARCHS`."""
+    from repro.models import common as RC
+    from repro_torch.models import common as PC
+
+    def use(arch):
+        if arch in F32_ARCHS:
+            ref_embed, port_embed = RC.embed, PC.embed
+            monkeypatch.setattr(RC, "embed",
+                                lambda p, t, dtype=None: ref_embed(p, t, jnp.float32))
+            monkeypatch.setattr(PC, "embed",
+                                lambda p, t, dtype=None: port_embed(p, t, torch.float32))
+
+    return use
 
 
 _CACHE = {}
@@ -69,6 +115,28 @@ def _pair(arch, seed=1):
 
 def _tokens(cfg, B, S, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _batch(cfg, B, S, seed=0):
+    """Tokens, then ``patch_embeds`` and ``frames`` where the arch takes
+    them, from one generator (numpy, f32)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    if cfg.encdec:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _jnp(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _prefix(cfg):
+    return cfg.prefix_len if cfg.frontend == "vision_stub" else 0
 
 
 def _f32(x):
@@ -96,20 +164,22 @@ def test_configs_are_the_reference_configs():
         a, b = configs.get_config(arch), ref_configs.get_config(arch)
         assert repr(a) == repr(b)
         assert repr(smoke_config(a)) == repr(ref_smoke_config(b))
-    assert len(DENSE) == 4
+    assert len(DENSE) == 4 and len(ARCHS) == 10
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_forward_matches_reference(arch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_reference(arch, activations):
+    activations(arch)
     cfg, rcfg, tree, model = _pair(arch)
-    tokens = _tokens(cfg, 2, 32)
-    want, _, _ = RM.forward(tree, {"tokens": jnp.asarray(tokens)}, rcfg, REF_CTX,
-                            mode="train")
-    got, caches, aux = M.forward(model, {"tokens": tokens}, cfg, CPU_TORCH,
-                                 mode="train")
-    assert got.dtype == torch.bfloat16 and got.shape == (2, 32, cfg.vocab_size)
+    batch = _batch(cfg, 2, 32)
+    want, _, waux = RM.forward(tree, _jnp(batch), rcfg, REF_CTX, mode="train")
+    got, caches, aux = M.forward(model, batch, cfg, CPU_TORCH, mode="train")
+    assert got.dtype == (torch.float32 if arch in F32_ARCHS else torch.bfloat16)
+    assert got.shape == (2, 32 + _prefix(cfg), cfg.vocab_size)
     assert _close(got, want), _err(got, want)
-    assert float(aux) == 0.0 and caches == {"layer_0": {}}
+    assert np.isclose(float(aux), float(waux), rtol=RTOL), (float(aux), float(waux))
+    assert (float(aux) > 0) == (cfg.num_experts > 0)
+    assert caches == {f"layer_{j}": {} for j in range(cfg.group_period)}
 
 
 def test_reference_forward_differs_from_itself_beyond_the_unscaled_tolerance():
@@ -127,42 +197,63 @@ def test_reference_forward_differs_from_itself_beyond_the_unscaled_tolerance():
     assert _close(a, b), _err(a, b)
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_prefill_matches_reference_flash_kernel(arch):
-    """S=128 prefill: the port's kernel path (plain version on the CPU)
-    against the reference's Pallas kernel in interpret mode; caches too."""
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_reference_flash_kernel(arch, activations):
+    """A 128-position prefill: the port's kernel path (plain version on
+    the CPU) against the reference's Pallas kernel in interpret mode;
+    caches (K/V and SSM states) and whisper's encoder memory too.  That
+    kernel takes sequences in blocks of 128: paligemma's 8 patch
+    positions leave 120 tokens, and whisper's smoke encoder (32 frames)
+    takes 128 frames here."""
+    activations(arch)
     cfg, rcfg, tree, model = _pair(arch)
-    tokens = _tokens(cfg, 2, 128, seed=3)
-    want, wc = RM.prefill(tree, {"tokens": jnp.asarray(tokens)}, rcfg,
-                          RefCtx(attn_impl="pallas"))
-    got, gc = M.prefill(model, {"tokens": tokens}, cfg, ShardingCtx(attn_impl="cuda"))
+    if cfg.encdec:
+        cfg = dataclasses.replace(cfg, encoder_seq=128)
+        rcfg = dataclasses.replace(rcfg, encoder_seq=128)
+    batch = _batch(cfg, 2, 128 - _prefix(cfg), seed=3)
+    want, wc = RM.prefill(tree, _jnp(batch), rcfg, RefCtx(attn_impl="pallas"))
+    got, gc = M.prefill(model, batch, cfg, ShardingCtx(attn_impl="cuda"))
     assert _close(got, want), _err(got, want)
-    assert gc["memory"] is None and wc["memory"] is None
-    for n in ("k", "v"):
-        g, w = gc["stack"]["layer_0"][n], wc["stack"]["layer_0"][n]
-        assert g.shape == w.shape == (cfg.num_layers, 2, 128, cfg.num_kv_heads,
-                                      cfg.head_dim)
-        assert g.dtype == torch.bfloat16
-        assert _close(g, w), (n, _err(g, w))
+    if cfg.encdec:
+        assert gc["memory"].shape == (2, cfg.encoder_seq, cfg.d_model)
+        assert _close(gc["memory"], wc["memory"]), _err(gc["memory"], wc["memory"])
+    else:
+        assert gc["memory"] is None and wc["memory"] is None
+    assert set(gc["stack"]) == set(wc["stack"])
+    for name, leaves in wc["stack"].items():
+        assert set(gc["stack"][name]) == set(leaves)
+        for n, w in leaves.items():
+            g = gc["stack"][name][n]
+            assert tuple(g.shape) == tuple(w.shape), (name, n)
+            if n in ("k", "v"):
+                assert g.shape == (cfg.num_groups, 2, 128, cfg.num_kv_heads, cfg.head_dim)
+                assert g.dtype == (torch.float32 if arch in F32_ARCHS else torch.bfloat16)
+            assert _close(g, w), (name, n, _err(g, w))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_consistency(arch):
     """decode_step(t) logits match the full-forward logits at t, as the
     reference's own test has it; the kernel path and the plain path too."""
     cfg, _, _, model = _pair(arch, seed=2)
     B, Sx = 2, 16
-    tokens = _tokens(cfg, B, Sx, seed=4)
-    full, _, _ = M.forward(model, {"tokens": tokens}, cfg, CPU_TORCH, mode="train")
+    batch = _batch(cfg, B, Sx, seed=4)
+    prefix = _prefix(cfg)
+    full, _, _ = M.forward(model, batch, cfg, CPU_TORCH, mode="train")
     P0 = Sx - 4
-    last, caches = M.prefill(model, {"tokens": tokens[:, :P0]}, cfg, LOCAL_CTX)
-    assert _close(last, full[:, P0 - 1])
-    caches = M.pad_caches(caches, cfg, max_seq=Sx)
-    assert caches["stack"]["layer_0"]["k"].shape[2] == Sx
+    last, caches = M.prefill(model, dict(batch, tokens=batch["tokens"][:, :P0]), cfg,
+                             LOCAL_CTX)
+    assert _close(last, full[:, prefix + P0 - 1])
+    caches = M.pad_caches(caches, cfg, max_seq=Sx + prefix)
+    for leaves in caches["stack"].values():
+        for n in ("k", "v"):
+            if n in leaves:
+                assert leaves[n].shape[2] == Sx + prefix
     for t in range(P0, Sx):
-        logits, caches = M.decode_step(model, tokens[:, t:t + 1], caches, t, cfg,
-                                       LOCAL_CTX)
-        assert _close(logits, full[:, t]), (t, _err(logits, full[:, t]))
+        logits, caches = M.decode_step(model, batch["tokens"][:, t:t + 1], caches,
+                                       prefix + t, cfg, LOCAL_CTX)
+        want = full[:, prefix + t]
+        assert _close(logits, want), (t, _err(logits, want))
 
 
 def test_decode_from_empty_caches_matches_forward():
@@ -177,11 +268,13 @@ def test_decode_from_empty_caches_matches_forward():
     assert not caches["stack"]["layer_0"]["k"][:, :, 6:].any()
 
 
-def _reference_launcher_loop(tree, rcfg, prompts, batch, gen_len):
-    """The loop of ``repro/launch/serve.py`` on given parameters and prompts
-    (the reference's launcher draws its own and cannot be handed any)."""
+def _reference_launcher_loop(tree, rcfg, prompts, batch, gen_len, rng):
+    """The loop of ``repro/launch/serve.py`` on given parameters, prompts
+    and generator (the reference's launcher draws its own and cannot be
+    handed any): each batch draws ``patch_embeds`` then ``frames``."""
     prompts = list(prompts)
-    max_seq = prompts[0].shape[0] + gen_len
+    prefix = _prefix(rcfg)
+    max_seq = prompts[0].shape[0] + gen_len + prefix
     prefill = jax.jit(lambda p, b: RM.prefill(p, b, rcfg, REF_CTX))
     decode = jax.jit(lambda p, t, kv, i: RM.decode_step(p, t, kv, i, rcfg, REF_CTX))
     done, logits_out = [], []
@@ -189,13 +282,20 @@ def _reference_launcher_loop(tree, rcfg, prompts, batch, gen_len):
         batch_prompts = [prompts.pop() for _ in range(min(batch, len(prompts)))]
         while len(batch_prompts) < batch:
             batch_prompts.append(batch_prompts[-1])
-        logits, caches = prefill(tree, {"tokens": jnp.asarray(np.stack(batch_prompts))})
+        inputs = {"tokens": jnp.asarray(np.stack(batch_prompts))}
+        if rcfg.frontend == "vision_stub":
+            inputs["patch_embeds"] = jnp.asarray(
+                rng.standard_normal((batch, rcfg.prefix_len, rcfg.d_model)), jnp.float32)
+        if rcfg.encdec:
+            inputs["frames"] = jnp.asarray(
+                rng.standard_normal((batch, rcfg.encoder_seq, rcfg.d_model)), jnp.float32)
+        logits, caches = prefill(tree, inputs)
         caches = RM.pad_caches(caches, rcfg, max_seq=max_seq)
         toks = jnp.argmax(logits, axis=-1)[:, None]
         outs, kept = [np.asarray(toks)], [_f32(logits)]
         for step in range(gen_len - 1):
             logits, caches = decode(tree, toks, caches,
-                                    jnp.int32(batch_prompts[0].shape[0] + step))
+                                    jnp.int32(batch_prompts[0].shape[0] + prefix + step))
             toks = jnp.argmax(logits, axis=-1)[:, None]
             outs.append(np.asarray(toks))
             kept.append(_f32(logits))
@@ -204,16 +304,23 @@ def _reference_launcher_loop(tree, rcfg, prompts, batch, gen_len):
     return done, logits_out
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma-7b"])
-def test_launcher_matches_reference_loop(arch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_matches_reference_loop(arch, activations):
+    activations(arch)
     cfg, rcfg, tree, model = _pair(arch)
-    prompts = S.make_prompts(cfg, 3, 24, seed=0)
+    rng_port, rng_ref = np.random.default_rng(0), np.random.default_rng(0)
+    # 5 requests: 3 batches of 2, the last padded (yi-6b's smoke logits
+    # have so many near ties that 3 requests leave 4 comparable tokens)
+    prompts = S.make_prompts(cfg, 5, 24, rng_port)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(prompts, S.make_prompts(cfg, 5, 24, rng_ref)))
     gen_len = 8
     res = S.serve(model, cfg, LOCAL_CTX, prompts, batch=2, gen_len=gen_len,
-                  keep_logits=True)
-    want_done, want_logits = _reference_launcher_loop(tree, rcfg, prompts, 2, gen_len)
-    assert len(res.done) == len(want_done) == 4  # last batch padded
-    assert res.tokens_out == 4 * gen_len and res.batches == 2
+                  keep_logits=True, rng=rng_port)
+    want_done, want_logits = _reference_launcher_loop(tree, rcfg, prompts, 2, gen_len,
+                                                      rng_ref)
+    assert len(res.done) == len(want_done) == 6  # last batch padded
+    assert res.tokens_out == 6 * gen_len and res.batches == 3
     compared = 0
     for b, (got_b, want_b) in enumerate(zip(res.logits, want_logits)):
         for row in range(2):
@@ -228,6 +335,14 @@ def test_launcher_matches_reference_loop(arch):
     assert compared >= 8
     for row in res.done:
         assert row.shape == (gen_len,) and row.min() >= 0 and row.max() < cfg.vocab_size
+
+
+def test_launcher_needs_the_generator_for_frontend_inputs():
+    for arch in ("whisper-large-v3", "paligemma-3b"):
+        cfg, _, _, model = _pair(arch)
+        prompts = S.make_prompts(cfg, 1, 8, 0)
+        with pytest.raises(ValueError, match="rng"):
+            S.serve(model, cfg, LOCAL_CTX, prompts, batch=1, gen_len=2)
 
 
 def test_launcher_main_prints_the_reference_lines(capsys):
@@ -284,15 +399,6 @@ def test_params_from_jax_rejects_a_missing_or_misshapen_leaf():
     bad = dict(tree, embed={"table": tree["embed"]["table"][:-1]})
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(bad, cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise(arch):
-    cfg = smoke_config(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        M.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        M.init_decode_caches(cfg, 1, 4, device="cpu")
 
 
 def test_mesh_context_raises():

@@ -81,16 +81,38 @@ line):
             Moonshot is served again from the seed, bitwise the same, and
             one prefill each of Moonshot and Whisper is traced (diagnostic:
             busy share and top device ops).
-7. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
+7. train    the training path (no kernel on it: the flash kernel has no
+            backward, as the reference's Pallas kernel has none, so training
+            runs the plain attention, attn_impl "torch", and the flash
+            kernel's launch count must not move).  Qwen2.5-3B as published
+            (36 layers, d 2048, vocab 151,936) through ``launch.train.main``:
+            f32 master weights and moments from the seed, bf16 activations,
+            remat, ``make_batch`` data, 4 steps of 4 x 512 tokens; each step's
+            ms, tokens/s, loss, grad_norm and lr and the peak memory are
+            printed; every loss and norm finite, step 1's loss within 1.0 of
+            ln(vocab), and most parameters moved from the seed's draw; one
+            more step is traced (diagnostic: busy share, top device ops).  At
+            the smoke config (4 x 64 tokens): one step on the card against
+            one on the CPU from the same parameters, step-3 moments and batch
+            (loss rtol 1e-3, grad_norm rtol 1e-2, what the step changed in
+            each parameter, m and v leaf within 0.1 x its largest change);
+            then, in a child process under torch.use_deterministic_algorithms
+            and CUBLAS_WORKSPACE_CONFIG=:4096:8 (so no other phase runs under
+            that setting), 9 steps uninterrupted,
+            6 steps with async checkpoints at 3 and 6 resumed to 9, and a
+            SIGTERM before step 1 (the preemption guard's emergency
+            checkpoint at 1) resumed to 9: losses and final parameters
+            bitwise the uninterrupted run's.
+8. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
             prefetch_depth=2, cache_bytes=1 GiB: PageRank (5 iterations),
             SSSP and WCC (to convergence) on backend ``cuda`` with
-            device_resident=True, and all three at 3 iterations with
+            device_resident=True, and all three at 2 iterations with
             device_resident=False, each held against backend ``torch`` on
             the card at the same depth (min/max bitwise, PageRank within
             rtol=1e-4, atol=1e-9).  The kernels' launch counters must equal
             the executor's dispatches.
-8. serve    the serving path on the same store: ``GraphService`` with
+9. serve    the serving path on the same store: ``GraphService`` with
             backend ``cuda``, device_resident=True, batch_shards=4,
             max_lanes=16, max_groups=2 answers 32 BFS/SSSP/PPR queries
             (max_iters=20) in one fusion set through the ragged lane
@@ -102,7 +124,7 @@ line):
             (BFS/SSSP bitwise, PPR within rtol=1e-4, atol=1e-9).  Launch counters
             must equal the sweeps' dispatches, and the service's metrics
             must show no conservation violation.
-9. mesh     the multi-device path at one slot (one H100) on the same
+10. mesh     the multi-device path at one slot (one H100) on the same
             store: a resident ``cuda`` engine booted with ``mesh=1``
             (batch_shards=4) runs PageRank, SSSP and WCC (3 iterations
             each), each bitwise the single-device engine with the same
@@ -121,7 +143,7 @@ line):
             engine, one segment_combine launch a superstep), SSSP and WCC to
             convergence (bitwise, the same iterations).  Per-iteration
             times of both engines and each superstep's time are printed.
-10. timing  each ELL kernel, its plain version and a one-call library yardstick
+11. timing  each ELL kernel, its plain version and a one-call library yardstick
             timed with CUDA events, L2 flushed before each call, on the
             main path's first batch of shards (the lane kernels at 16 and
             32 lanes), beside its bound: the bytes the function must move
@@ -135,7 +157,7 @@ line):
             recorded beside the new ones.  The window staging probe times
             the masked and the lanes kernels with every tile gathering
             from window 0, which stays in L2.
-11. sentinel ell_update(variant="sentinel") on the main path's first batch
+12. sentinel ell_update(variant="sentinel") on the main path's first batch
             (shards 0-3) with PageRank's first messages, sum/min/max: its
             3 launches counted; partials and update bitwise the masked
             ones for each combine; against the plain version min/max
@@ -143,7 +165,7 @@ line):
             messages are below 2^-21: a fixed atol would hold nothing);
             timed beside the masked kernel, its bound the whole index
             plane, the gathered message sectors, tile_window and the output.
-12. bloom   one BloomFilter32 per shard over the scheduler's exact source
+13. bloom   one BloomFilter32 per shard over the scheduler's exact source
             sets; active sets of 2^10 and 2^16 random vertices and every
             vertex: contains per filter and any_active_shards (48 + 3
             launches counted) bitwise against the host filters, no shard
@@ -158,13 +180,13 @@ line):
             turn on one stream; and contains on one filter at each set
             size beside its bound (ids, touched sectors and bytes out, or
             its operations).
-13. trace   (diagnostic: a profiler error leaves "not measured" and does
+14. trace   (diagnostic: a profiler error leaves "not measured" and does
             not fail the run) one resident PageRank run of 3 iterations and
             one resident fusion set of 32 queries (max_iters=5) under
             torch.profiler: each kernel's device time as the engine
             launches it, beside the engine's kernel_s, and the card's busy
             share of the run.
-14. ingest  the main phase's graph written as a binary edge file
+15. ingest  the main phase's graph written as a binary edge file
             (``write_edge_file``, 8 B an edge) and stream-ingested
             (``ShardStore.ingest``, the default 64 MiB spill budget, one
             finalize worker) into a second store by a child process: every
@@ -174,7 +196,7 @@ line):
             finalize seconds (trace spans), ``IngestStats`` and the child's
             peak RSS are recorded.  npz members carry their write time, so
             the script pins the zip clock for every store it writes.
-15. delta   live mutations on the ingested copy: a resident ``cuda``
+16. delta   live mutations on the ingested copy: a resident ``cuda``
             ``GraphService`` (batch_shards=4, max_lanes=16, max_groups=2)
             answers 16 BFS/SSSP/WCC/PPR queries (max_iters=2; version 0),
             then two batches of 2^15 uniform inserts and 2^13 deletes of
@@ -197,7 +219,7 @@ line):
             bitwise, a new query bitwise the cold service's.  Publish,
             sweep, compaction and boot seconds are recorded (host work on
             the card's machine: dirty shards decode on the host).
-16. pulse   the load harness on the ingested copy (after ``delta``): a
+17. pulse   the load harness on the ingested copy (after ``delta``): a
             resident ``cuda`` ``GraphService`` (batch_shards=4, max_lanes=16,
             max_groups=2, no session cache) with the telemetry ticker
             (0.5 s windows) and three SLOs (latency p99 under 60 s, budget
@@ -237,6 +259,7 @@ import dataclasses
 import hashlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -353,13 +376,28 @@ PULSE_SEED, PULSE_ITERS = 29, 3
 PULSE_SOLO_BUDGET_S = 40.0  # non-resident solo runs at the last version
 #: the main phase's non-resident cuda run (and its torch cross-check), cut
 #: from PageRank 5 and SSSP/WCC to convergence (6 iterations, about 3.7 s
-#: each on the H100's machine) to pay for the mesh phase
-MAIN_STORE_ITERS = 3
+#: each on the H100's machine) to pay for the mesh phase, then from 3 to 2
+#: to pay for the train phase
+MAIN_STORE_ITERS = 2
 MESH_ITERS = 3  # the mesh phase's engine runs: PageRank, SSSP, WCC
 MESH_QUERIES, MESH_QUERY_ITERS = 8, 5  # 2 each of BFS/SSSP/WCC/PPR
 #: the superstep's graph: R-MAT 2^18 vertices, 2^22 edges, seed 7
 DIST_VERTICES, DIST_EDGES, DIST_SEED = 1 << 18, 1 << 22, 7
 DIST_PR_ITERS, DIST_MAX_ITERS = 10, 200
+#: the train phase: Qwen2.5-3B as published, TRAIN_BATCH x TRAIN_SEQ tokens a
+#: step for TRAIN_STEPS steps; then its smoke config at TRAIN_SMOKE_SEQ
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SMOKE_SEQ = 4, 4, 512, 64
+#: step 1's loss from random weights: ln(vocab) plus half the logits' variance
+#: (tied embeddings of std 0.02 over d=2048 unit-RMS features: about 0.41)
+TRAIN_LOSS0_TOL = 1.0
+TRAIN_SMOKE_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=12)
+#: one step, card vs CPU (bf16 activations): loss and grad_norm rtol, and
+#: what the step changed in each parameter, m and v leaf (p - p0, m - b1 m0,
+#: v - b2 v0) within ``delta`` x its largest change plus 2 ulps of the value
+#: (tests/test_torch_train.py's bf16 tolerance; a no-op step reads 1)
+TRAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "delta": 0.1}
+#: the step-3 moments: m0 of this std, v0 in [1, 2) x 1e-4
+TRAIN_M0_STD = 1e-4
 
 
 def parse_args(argv):
@@ -371,6 +409,8 @@ def parse_args(argv):
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke.json"))
     ap.add_argument("--ingest-child", nargs=2, metavar=("EDGES", "ROOT"),
                     help=argparse.SUPPRESS)  # the ingest phase's child process
+    ap.add_argument("--train-resume-child", action="store_true",
+                    help=argparse.SUPPRESS)  # the train phase's resume check
     return ap.parse_args(argv)
 
 
@@ -2430,6 +2470,183 @@ class Smoke:
         del params, first, res
         return d
 
+    # ------------------------------------------------------------- training
+    def train(self):
+        """The training path on the card (see the module docstring): full
+        width through the launcher, one step against the CPU's, and a
+        resume bitwise an uninterrupted run.  No kernel is on this path:
+        the flash kernel has no backward, so training runs the plain
+        attention (the reference trains on ``"xla"``), and its launch count
+        must not move."""
+        from repro_torch.kernels.flash_attention import kernel as FK
+
+        rep = self.report["train"] = {}
+        flash0 = FK.flash_attention.launches
+        self.train_full(rep)
+        self.train_card_vs_cpu(rep)
+        self.train_resume(rep)
+        if FK.flash_attention.launches != flash0:
+            raise AssertionError("the training path launched the flash kernel")
+
+    def train_full(self, rep):
+        """Qwen2.5-3B as published through ``launch.train.main``."""
+        import math
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data.tokens import DataConfig, make_batch
+        from repro_torch.distributed.sharding import ShardingCtx
+        from repro_torch.launch import train as LT
+        from repro_torch.models import model as M
+        from repro_torch.optim import adamw
+        from repro_torch.train.step import make_train_step
+
+        a = self.args
+        cfg = configs.get_config(LM_ARCH)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = LT.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--seq",
+                       str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--seed",
+                       str(a.seed), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        d = {"arch": cfg.name, "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+             "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "wall_s": wall,
+             "params": sum(p.numel() for p in res.params.parameters()),
+             "step_ms": [t * 1e3 for t in res.step_times],
+             "tokens_per_s": [tokens / t for t in res.step_times],
+             "loss": res.losses, "grad_norm": res.grad_norms, "lr": res.lrs,
+             "peak_bytes": peak, "ln_vocab": math.log(cfg.vocab_size)}
+        rep["full"] = d
+        for i in range(TRAIN_STEPS):
+            print(f"  step {i + 1}: {d['step_ms'][i]:.1f} ms, "
+                  f"{d['tokens_per_s'][i]:.0f} tokens/s, loss {d['loss'][i]:.4f}, "
+                  f"grad_norm {d['grad_norm'][i]:.4f}, lr {d['lr'][i]:.3e}")
+        print(f"  {cfg.name} ({d['params']} parameters, f32 weights and moments, "
+              f"bf16 activations, remat): {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+              f"peak {peak} B, {wall:.1f} s in all")
+        if not all(math.isfinite(x) for x in d["loss"] + d["grad_norm"]):
+            raise AssertionError(f"train: non-finite loss or norm: {d}")
+        if abs(d["loss"][0] - d["ln_vocab"]) > TRAIN_LOSS0_TOL:
+            raise AssertionError(f"train: step 1 loss {d['loss'][0]} is not near "
+                                 f"ln(vocab) {d['ln_vocab']}")
+        # the parameters moved: against the same seed's initial draw
+        init = M.init_params(a.seed, cfg, dtype=torch.float32, device="cuda")
+        moved = total = 0
+        for (n, p), q in zip(res.params.named_parameters(), init.parameters()):
+            moved += int((p != q).sum())
+            total += p.numel()
+        d["moved_share"] = moved / total
+        print(f"  parameters moved: {moved} of {total} ({d['moved_share']:.4f})")
+        del init
+        if d["moved_share"] < 0.5:
+            raise AssertionError(f"train: only {moved} of {total} parameters moved")
+        # diagnostic: one more step (fresh moments, the next batch) traced:
+        # the card's busy share and top device ops
+        try:
+            step = make_train_step(cfg, ShardingCtx(attn_impl="torch"),
+                                   adamw.AdamWConfig())
+            state = adamw.init(dict(res.params.named_parameters()))
+            batch = make_batch(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                          vocab_size=cfg.vocab_size), TRAIN_STEPS)
+            with tempfile.TemporaryDirectory() as tmp:
+                trace, _ = device_trace(
+                    torch, lambda: step(res.params, state, None, batch),
+                    Path(tmp) / "train_step.json")
+            trace["by_name"] = dict(sorted(trace["by_name"].items(),
+                                           key=lambda kv: -kv[1]["ms"])[:12])
+            del state
+        except Exception as exc:  # a diagnostic: report, do not fail
+            trace = {"not measured": repr(exc)}
+        d["trace_step"] = trace
+        print(f"  one more step traced: {json.dumps(trace)}")
+        del res
+        torch.cuda.empty_cache()
+
+    def _smoke_train_state(self, cfg, device):
+        """The smoke config's parameters from the seed (drawn on the CPU)
+        and mid-training moments at step 3, on ``device``."""
+        torch = self.torch
+        from repro_torch.models import model as M
+        from repro_torch.optim import adamw
+
+        model = M.init_params(self.args.seed, cfg, dtype=torch.float32, device="cpu")
+        gen = torch.Generator().manual_seed(self.args.seed)
+        named = dict(model.named_parameters())
+        state = adamw.init(named)
+        for n, p in named.items():
+            state.m[n].copy_(torch.randn(p.shape, generator=gen) * TRAIN_M0_STD)
+            state.v[n].copy_(1e-4 * (1 + torch.rand(p.shape, generator=gen)))
+        state.step = 3
+        model = model.to(device)
+        named = dict(model.named_parameters())
+        state.m = {n: t.to(device) for n, t in state.m.items()}
+        state.v = {n: t.to(device) for n, t in state.v.items()}
+        return model, named, state
+
+    def train_card_vs_cpu(self, rep):
+        """One step at the smoke width on the card and on the CPU, from the
+        same parameters, moments and batch."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.config import smoke_config
+        from repro_torch.data.tokens import DataConfig, make_batch
+        from repro_torch.distributed.sharding import ShardingCtx
+        from repro_torch.models.params import reference_tree
+        from repro_torch.optim import adamw
+        from repro_torch.train.step import make_train_step
+
+        cfg = smoke_config(configs.get_config(LM_ARCH))
+        batch = make_batch(DataConfig(seq_len=TRAIN_SMOKE_SEQ, global_batch=TRAIN_BATCH,
+                                      vocab_size=cfg.vocab_size, seed=self.args.seed), 0)
+        opt = adamw.AdamWConfig(**TRAIN_SMOKE_OPT)
+        host = lambda ts, c=1.0: {n: c * t.cpu().numpy() for n, t in ts.items()}
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model, named, state = self._smoke_train_state(cfg, dev)
+            base = {"params": host(named), "m": host(state.m, opt.b1),
+                    "v": host(state.v, opt.b2)}
+            step = make_train_step(cfg, ShardingCtx(attn_impl="torch"), opt)
+            _, state, _, met = step(model, state, None, batch)
+            out[dev] = ({k: float(v) for k, v in met.items()},
+                        {"params": host(named), "m": host(state.m), "v": host(state.v)})
+        d = {"metrics": {dev: out[dev][0] for dev in out}, "worst_change_err": {}}
+        for name, rtol in (("loss", TRAIN_TOL["loss"]),
+                           ("grad_norm", TRAIN_TOL["grad_norm"])):
+            got, want = out["cuda"][0][name], out["cpu"][0][name]
+            if not np.isclose(got, want, rtol=rtol, atol=0):
+                raise AssertionError(f"train card vs cpu: {name} {got} vs {want}")
+        for kind in ("params", "m", "v"):
+            worst = 0.0
+            for n, want in out["cpu"][1][kind].items():
+                got = out["cuda"][1][kind][n]
+                top = max(float(np.abs(want - base[kind][n]).max()), 1e-30)
+                err = float((np.abs(got - want) - 2 * np.spacing(np.abs(want))).max()) / top
+                worst = max(worst, err)
+                if err > TRAIN_TOL["delta"]:
+                    raise AssertionError(f"train card vs cpu: {kind} {n}: change err "
+                                         f"{err} of its largest change {top}")
+            d["worst_change_err"][kind] = worst
+        rep["card_vs_cpu"] = d
+        print(f"  one step at the smoke width, card vs CPU: {json.dumps(d)}")
+
+    def train_resume(self, rep):
+        """The resume check (:func:`train_resume_child`) in a child process:
+        deterministic algorithms need cuBLAS's workspace fixed before its
+        first call, and the other phases keep their own setting."""
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--seed",
+             str(self.args.seed), "--train-resume-child"],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"train resume child failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        rep["resume"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"  resume at the smoke width: {json.dumps(rep['resume'])}")
+
     def sentinel(self):
         """ell_update(variant="sentinel") on the main path's first batch
         (shards 0-3) with PageRank's first messages, each combine: bitwise
@@ -2814,6 +3031,64 @@ def ingest_child(args) -> int:
     return 0
 
 
+def train_resume_child(args) -> int:
+    """Smoke width on the card under deterministic algorithms: 9 steps
+    uninterrupted; 6 with an async checkpoint at 3 and 6, resumed to 9; a
+    SIGTERM before step 1 (the emergency checkpoint at 1), resumed to 9.
+    Losses and final parameters bitwise the uninterrupted run's; prints
+    what it saw as JSON and fails if any of it differs."""
+    import signal
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.config import smoke_config
+    from repro_torch.data.tokens import DataConfig
+    from repro_torch.distributed.fault_tolerance import PreemptionGuard
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import LoopConfig, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_config(configs.get_config(LM_ARCH))
+    data = DataConfig(seq_len=TRAIN_SMOKE_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=args.seed)
+    opt = adamw.AdamWConfig(**TRAIN_SMOKE_OPT)
+    kw = dict(device="cuda")
+    loop = lambda total: LoopConfig(total_steps=total, checkpoint_every=3,
+                                    log_every=0, seed=args.seed)
+    torch.use_deterministic_algorithms(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train(cfg, data, loop(9), opt, **kw)
+        a = train(cfg, data, loop(6), opt, checkpoint_dir=f"{tmp}/a", **kw)
+        steps_a = sorted(os.listdir(f"{tmp}/a"))
+        b = train(cfg, data, loop(9), opt, checkpoint_dir=f"{tmp}/a", **kw)
+        with PreemptionGuard() as guard:
+            os.kill(os.getpid(), signal.SIGTERM)
+            p = train(cfg, data, loop(9), opt, checkpoint_dir=f"{tmp}/p",
+                      preemption=guard, **kw)
+        emergency = Checkpointer(f"{tmp}/p").latest_step()
+        q = train(cfg, data, loop(9), opt, checkpoint_dir=f"{tmp}/p", **kw)
+    same = lambda x, y: all(torch.equal(s, t) for s, t in
+                            zip(x.params.state_dict().values(),
+                                y.params.state_dict().values()))
+    d = {"losses": full.losses, "checkpoints": steps_a,
+         "resumed_from": [b.resumed_from, q.resumed_from],
+         "preempted": p.preempted, "preempted_at": p.final_step,
+         "emergency_checkpoint": emergency,
+         "resume_losses_bitwise": a.losses + b.losses == full.losses,
+         "resume_params_bitwise": same(b, full),
+         "preempt_losses_bitwise": p.losses + q.losses == full.losses,
+         "preempt_params_bitwise": same(q, full)}
+    print(json.dumps(d))
+    ok = (steps_a == ["step_00000003", "step_00000006"]
+          and d["resumed_from"] == [6, 1] and p.preempted and emergency == 1
+          and d["resume_losses_bitwise"] and d["resume_params_bitwise"]
+          and d["preempt_losses_bitwise"] and d["preempt_params_bitwise"])
+    return 0 if ok else 1
+
+
 def spread_of(ms):
     """Median, quartiles and extremes of a list of times."""
     import numpy as np
@@ -2961,6 +3236,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.ingest_child:
         return ingest_child(args)
+    if args.train_resume_child:
+        return train_resume_child(args)
     import torch
 
     if not torch.cuda.is_available():
@@ -2989,6 +3266,7 @@ def main(argv=None) -> int:
         smoke.phase("lm_serve", smoke.lm_serve)
         smoke.phase("lm_decode", smoke.lm_decode)
         smoke.phase("lm_families", smoke.lm_families)
+        smoke.phase("train", smoke.train)
         smoke.phase("small_engine", smoke.small_engine)
         smoke.phase("main", smoke.main_path)
         if "main" not in smoke.failures:

@@ -1,1 +1,2 @@
-"""Warm-restart checkpoints of the serving stack (DESIGN.md §12)."""
+"""Checkpoints: the training path's sharded checkpointer and the serving
+stack's warm-restart state (DESIGN.md §12)."""

@@ -1,1 +1,2 @@
-"""Multi-device pieces of the port (one-card context only so far)."""
+"""Multi-device pieces of the port (one-card context only so far) and the
+training loop's fault tolerance."""

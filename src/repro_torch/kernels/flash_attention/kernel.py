@@ -144,6 +144,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel has no backward (nor has the reference's Pallas kernel):
+        # its output would carry no graph and cut the gradients silently
+        raise RuntimeError("flash_attention has no backward: its inputs require "
+                           "gradients; train with attn_impl='torch'")
     if q.dtype not in _DTYPES:
         raise TypeError(f"dtype {q.dtype} not in {sorted(map(str, _DTYPES))}")
     B, Hq, Sq, D = q.shape

@@ -4,7 +4,9 @@
 - ``"torch"`` — the plain PyTorch reference path (the reference's
   ``"xla"``), also the numerics oracle.
 - ``"cuda"``  — the flash kernel (the reference's ``"pallas"``): the CUDA
-  kernel for CUDA tensors, its plain version for CPU tensors.
+  kernel for CUDA tensors, its plain version for CPU tensors.  The kernel
+  has no backward, as the reference's has none: on CUDA tensors that
+  require gradients it raises rather than fall back to the plain path.
 
 Both accept GQA layouts [B, Hq, S, D] x [B, Hkv, S, D].  The kernel reads
 the KV head of each query head by index; nothing is expanded.

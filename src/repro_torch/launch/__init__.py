@@ -1,1 +1,1 @@
-"""Launchers of the port: the LM serving loop."""
+"""Launchers of the port: the LM serving loop and the training loop."""

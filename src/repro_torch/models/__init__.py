@@ -1,1 +1,1 @@
-"""Model zoo of the port: the dense decoder family (prefill and decode)."""
+"""Model zoo of the port: every registered family, served and trained."""

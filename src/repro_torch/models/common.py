@@ -5,8 +5,9 @@ the reference's pytree keys (``attn.wq.w``, ``ln1.scale``, ...), so a
 reference parameter tree loads by path (``models/params.py``).  The
 functions keep the reference's functional form, ``linear(params, x)``, and
 its dtype rules: activations in bf16, norms and RoPE in f32, weights cast
-to the activation dtype at each use.  Parameters carry no gradient: the
-port serves, it does not train yet.
+to the activation dtype at each use.  Parameters are created without
+gradients; the training step (``train/step.py``) turns them on for its
+backward pass only, so serving never builds a graph.
 """
 
 from __future__ import annotations

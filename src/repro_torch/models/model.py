@@ -1,8 +1,10 @@
-"""Top-level model API: init / forward / prefill / decode_step.
+"""Top-level model API: init / forward / train_loss / prefill / decode_step.
 
-The entry points the serving launcher uses, for every registered arch.
-Batch layouts, as in the reference::
+The entry points the serving launcher and the training step use, for
+every registered arch.  Batch layouts, as in the reference::
 
+    train:   {"tokens": [B,S] integer, "labels": [B,S] integer}
+             (+ the frontend inputs below)
     prefill: {"tokens": [B,S] integer}
              (+ "patch_embeds": [B,prefix,d] (vlm) | "frames": [B,T,d] (audio))
     decode:  tokens [B,1], cache_index int, the caches pytree
@@ -21,7 +23,7 @@ reference donates the cache buffers) and returns the same dict.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,8 +36,8 @@ from . import transformer as T
 from .attention import self_attention
 from .mlp import mlp
 
-__all__ = ["Model", "init_params", "forward", "prefill", "decode_step",
-           "init_decode_caches", "pad_caches"]
+__all__ = ["Model", "init_params", "forward", "train_loss", "prefill",
+           "decode_step", "init_decode_caches", "pad_caches"]
 
 
 class Encoder(nn.Module):
@@ -165,8 +167,9 @@ def forward(
     caches=None, cache_index: Optional[int] = None, remat: bool = True,
     memory=None,
 ):
-    """Shared backbone.  Returns (logits, new_caches, aux).  ``remat`` is
-    accepted for the reference's signature; nothing is trained here."""
+    """Shared backbone.  Returns (logits, new_caches, aux).  ``remat``: in
+    train mode under autograd, each layer is recomputed in the backward
+    pass (``transformer.run_stack``)."""
     if cfg.encdec and memory is None and mode != "decode":
         memory = _encode(params, batch, cfg, ctx)
     x, positions = _embed_inputs(params, batch, cfg, ctx)
@@ -177,9 +180,32 @@ def forward(
     x, new_caches, aux = T.run_stack(
         params.layers, x, positions, cfg, ctx,
         mode=mode, caches=caches, cache_index=cache_index, memory=memory,
+        remat=remat,
     )
     logits = _head(params, x, cfg, ctx)
     return logits, new_caches, aux
+
+
+# ------------------------------------------------------------------ losses
+def train_loss(
+    params: Model, batch, cfg: ModelConfig, ctx: ShardingCtx, *,
+    aux_coef: float = 0.01, remat: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL over the positions with ``labels >= 0`` (the
+    vision prefix carries none), plus ``aux_coef`` x the MoE aux loss.
+    Returns (total, {"loss", "aux", "tokens"})."""
+    logits, _, aux = forward(params, batch, cfg, ctx, mode="train", remat=remat)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        # prefix positions carry no next-token loss
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    # masked labels pick any finite entry: the mask zeroes it
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = loss + aux_coef * aux
+    return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------- serving

@@ -17,14 +17,21 @@ reference:
 - Three modes: ``train`` (no caches), ``prefill`` (returns the stacked
   caches), ``decode`` (writes each layer's slice of the caches in place,
   static cache shapes, position-masked attention).
+- ``remat`` (train mode, under autograd): each layer runs under
+  ``torch.utils.checkpoint``, so the backward pass recomputes one layer at
+  a time, the bf16 casts of its weights included, instead of keeping every
+  layer's activations: the reference's per-group and nested per-layer
+  ``jax.checkpoint``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..distributed.sharding import ShardingCtx
@@ -171,6 +178,7 @@ def run_stack(
     caches=None,  # stacked {"layer_j": {name: [G, ...]}} (decode), else None
     cache_index: Optional[int] = None,
     memory: Optional[torch.Tensor] = None,
+    remat: bool = True,
 ):
     """Walk the layers, layer ``g * period + j`` as ``layer_j`` of group
     ``g``.  Returns (x, new_caches, aux_total): ``prefill`` stacks each
@@ -178,8 +186,10 @@ def run_stack(
     with each layer's slice written in place, ``train`` empty caches.
     ``aux_total`` sums the aux loss of each group's last layer only: the
     reference's group body adds the ``aux`` its layer loop ends with, so
-    Jamba's (period 8) counts layer 7 of each group, as it does there."""
+    Jamba's (period 8) counts layer 7 of each group, as it does there (kept
+    for parity in training too).  ``remat``: see the module docstring."""
     period = cfg.group_period
+    use_remat = remat and mode == "train" and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     built = []
     for i, layer in enumerate(layers):
@@ -187,9 +197,14 @@ def run_stack(
         cache = None
         if mode == "decode":
             cache = {n: t[g] for n, t in caches[f"layer_{j}"].items()}
-        x, nc, aux = block_apply(layer, x, positions, cfg, ctx, j, mode=mode,
-                                 cache=cache, cache_index=cache_index,
-                                 memory=memory)
+        fn = functools.partial(block_apply, layer, cfg=cfg, ctx=ctx,
+                               layer_in_group=j, mode=mode, cache=cache,
+                               cache_index=cache_index)
+        if use_remat:
+            x, nc, aux = checkpoint(fn, x, positions, memory=memory,
+                                    use_reentrant=False)
+        else:
+            x, nc, aux = fn(x, positions, memory=memory)
         if j == period - 1:
             aux_total = aux_total + aux
         if mode == "decode":

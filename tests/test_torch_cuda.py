@@ -744,6 +744,81 @@ def test_lm_prefill_cuda_matches_torch_on_the_card(dev):
     assert all(np.array_equal(x, y) for x, y in zip(a.done, b.done))
 
 
+def test_flash_kernel_raises_under_gradients(dev):
+    """The kernel has no backward: on CUDA inputs that require gradients the
+    cuda entry raises (nothing launched, no fall back to the plain path);
+    without gradients it runs as before."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import attention
+
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 2, 8, 2, 64, 64, 64)
+    before = FK.flash_attention.launches
+    for t in (q, k, v):
+        qg, kg, vg = (x.clone().requires_grad_(x is t) for x in (q, k, v))
+        with pytest.raises(RuntimeError, match="no backward"):
+            attention(qg, kg, vg, impl="cuda")
+    assert FK.flash_attention.launches == before
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        assert torch.equal(attention(qg, k, v, impl="cuda"), FK.flash_attention(q, k, v))
+    assert FK.flash_attention.launches == before + 2
+    out = attention(qg, k, v, impl="torch")  # the plain path trains
+    out.float().sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad.float()).all()
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One step at the smoke width on the card and on the CPU from the same
+    parameters, step-3 moments and batch: loss rtol 1e-3, grad_norm rtol
+    1e-2, and what the step changed in each parameter, m and v leaf (p - p0,
+    m - b1 m0, v - b2 v0) within 0.1 x its largest change plus 2 ulps of the
+    value (bf16 activations: tests/test_torch_train.py)."""
+    from repro_torch import configs
+    from repro_torch.config import smoke_config
+    from repro_torch.data.tokens import DataConfig, make_batch
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = smoke_config(configs.get_config("qwen2.5-3b"))
+    batch = make_batch(DataConfig(seq_len=64, global_batch=4,
+                                  vocab_size=cfg.vocab_size, seed=7), 0)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=12)
+    out = {}
+    for device in ("cpu", dev):
+        model = M.init_params(7, cfg, dtype=torch.float32, device="cpu")
+        gen = torch.Generator().manual_seed(7)
+        named = dict(model.named_parameters())
+        state = adamw.init(named)
+        for n, p in named.items():
+            state.m[n].copy_(torch.randn(p.shape, generator=gen) * 1e-4)
+            state.v[n].copy_(1e-4 * (1 + torch.rand(p.shape, generator=gen)))
+        state.step = 3
+        base = {"params": {n: p.clone() for n, p in named.items()},
+                "m": {n: opt.b1 * t for n, t in state.m.items()},
+                "v": {n: opt.b2 * t for n, t in state.v.items()}}
+        model = model.to(device)
+        state.m = {n: t.to(device) for n, t in state.m.items()}
+        state.v = {n: t.to(device) for n, t in state.v.items()}
+        step = make_train_step(cfg, ShardingCtx(attn_impl="torch"), opt)
+        _, state, _, met = step(model, state, None, batch)
+        out[str(device)] = (met, {k: {n: t.detach().cpu() for n, t in ts.items()}
+                                  for k, ts in (("params", dict(model.named_parameters())),
+                                                ("m", state.m), ("v", state.v))})
+    (cm, ct), (gm, gt) = out["cpu"], out[str(dev)]
+    assert np.isclose(float(gm["loss"]), float(cm["loss"]), rtol=1e-3, atol=0)
+    assert np.isclose(float(gm["grad_norm"]), float(cm["grad_norm"]), rtol=1e-2, atol=0)
+    for kind in ct:
+        for n, want in ct[kind].items():
+            top = float((want - base[kind][n]).abs().max())
+            err = (gt[kind][n] - want).abs() - 2 * torch.from_numpy(
+                np.spacing(want.abs().numpy()))
+            assert float(err.max()) <= 0.1 * top, (kind, n, float(err.max()), top)
+    with pytest.raises(ValueError, match="no backward"):
+        make_train_step(cfg, ShardingCtx(attn_impl="cuda"), adamw.AdamWConfig())
+
+
 def _routes(run, record=None):
     """``run()``'s MoE routings (each call's top-k experts), or ``run()``
     with each call routed to ``record``'s experts, gates from its own

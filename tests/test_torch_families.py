@@ -30,7 +30,7 @@ from repro_torch.distributed.sharding import LOCAL_CTX
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.params import _copy, _leaves, _param, params_from_jax
+from repro_torch.models.params import _copy, _leaves, _target, params_from_jax
 
 JAMBA, XLSTM, MOONSHOT = "jamba-1.5-large-398b", "xlstm-350m", "moonshot-v1-16b-a3b"
 WHISPER, PALIGEMMA, PHI = "whisper-large-v3", "paligemma-3b", "phi3.5-moe-42b-a6.6b"
@@ -69,8 +69,9 @@ def _state_close(got, want):
 
 
 def _load(module, tree):
+    named = dict(module.named_parameters())
     for path, arr in _leaves(tree):
-        _copy(_param(module, path), arr, path)
+        _copy(_target(named, path), arr, path)
     return module
 
 

@@ -51,6 +51,14 @@ import repro_torch.checkpoint
 import repro_torch.checkpoint.warm_state
 import repro_torch.core.distributed
 import repro_torch.launch.mesh
+import repro_torch.optim.adamw
+import repro_torch.optim.compression
+import repro_torch.data.tokens
+import repro_torch.checkpoint.checkpointer
+import repro_torch.distributed.fault_tolerance
+import repro_torch.train.step
+import repro_torch.train.loop
+import repro_torch.launch.train
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 import torch
@@ -150,6 +158,23 @@ with tempfile.TemporaryDirectory() as d:
         assert svc.warm_restore_report["valid"]
     store = prepare_baseline_store(g, os.path.join(d, "b"), num_shards=2)
     assert ESGEngine(store).run(apps.pagerank(), max_iters=2).values.shape == (200,)
+from repro_torch.data.tokens import DataConfig
+from repro_torch.optim import adamw
+from repro_torch.train.loop import LoopConfig, train
+with tempfile.TemporaryDirectory() as d:
+    res = train(cfg, DataConfig(seq_len=8, global_batch=2, vocab_size=cfg.vocab_size,
+                                motif_len=4),
+                LoopConfig(total_steps=2, checkpoint_every=1, log_every=0),
+                adamw.AdamWConfig(), checkpoint_dir=d, device="cpu")
+    assert res.final_step == 2 and sorted(os.listdir(d))[-1] == "step_00000002"
+if not torch.cuda.is_available():
+    try:
+        train(cfg, DataConfig(seq_len=8, global_batch=2, vocab_size=cfg.vocab_size),
+              LoopConfig(total_steps=1), adamw.AdamWConfig())
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("default device ran without a card")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print("isolated ok")

@@ -103,6 +103,33 @@ line):
             SIGTERM before step 1 (the preemption guard's emergency
             checkpoint at 1) resumed to 9: losses and final parameters
             bitwise the uninterrupted run's.
+7a. dryrun  the sharded dry run (``launch.dryrun``) in a child process
+            (``--dryrun-child``: a fake process group cannot share a process
+            with an NCCL one): Qwen2.5-3B as published, ``train_4k`` (the
+            whole step) and ``decode_32k``, and the paper's engine at
+            eu-2015 scale (``lower_graphmp``), on the 16 x 16 production
+            mesh of a fake group of 512 ranks, every tensor ``meta``; each
+            cell's per-card FLOPs, bytes, collective bytes, peak and seconds
+            and the roofline and memory tables (``roofline.report``);
+            ``hw.HBM_BYTES`` is held against the card's own total_memory
+            (the one read of device memory), and each cell's peak against
+            that.
+7b. model_mesh  a (1, 1) ``("data", "model")`` DeviceMesh over a one-rank
+            NCCL group: (a) the smoke config's train step with DTensor
+            parameters and moments against the unsharded step from the same
+            parameters, moments and batch (bitwise, or within the train
+            phase's TRAIN_TOL: the sharded loss is Megatron's vocab-parallel
+            decomposition); (b) a checkpoint restored with
+            ``elastic_reshard`` onto the mesh, bitwise; (c) one step of
+            Qwen2.5-3B as published at 4 x 512 tokens on the mesh from the
+            train phase's seed and first batch, its loss within TRAIN_TOL's
+            of the train phase's step 1, its ms and peak printed beside that
+            step's; (d) the train phase's steady step against 6 N D and the
+            card's bf16 peak (a reading, printed with the card's name and
+            power limit); (e) a reading of where (c)'s host time goes: a
+            second mesh step under MeshOps (its fallbacks counted), a third
+            under DTensor's own dispatch alone, beside the train phase's
+            steady step.
 8. main     the engine's main path at 2^21 vertices / 2^25 R-MAT edges
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
             prefetch_depth=2, cache_bytes=1 GiB: PageRank (5 iterations),
@@ -226,11 +253,13 @@ line):
             0.01; admission errors, 0.05; queue-wait share, 0.95) answers
             ``benchmarks/bench_graphmp.py``'s fig_qps mix (BFS weight 2,
             SSSP, WCC, PPR at damping 0.85; max_iters=3, cut from 6; seed
-            29).  A closed loop (8 workers, submit_batch chunks of 4, 64
-            ops, 16 of them warm-up, no mutations): every record bitwise a solo
+            29).  A closed loop (8 workers, submit_batch chunks of 4, 24
+            ops, 8 of them warm-up, no mutations; cut from 64 and 16 to pay
+            for dryrun and model_mesh): every record bitwise a solo
             resident ``cuda`` ``VSWEngine``.  An open loop under the tracer
-            (Poisson arrivals at half the closed loop's rate, 24 ops, 4
-            warm-up, 16 random inserts after every 12th op): each record at
+            (Poisson arrivals at half the closed loop's rate, 12 ops, 2
+            warm-up, 16 random inserts after every 6th op; cut from 24, 4
+            and 12): each record at
             the pre-stream version bitwise that solo engine; at the last
             published version, per program the record with the fewest
             iterations (within 40 s) bitwise a solo non-resident ``cuda``
@@ -268,7 +297,10 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+sys.path.insert(0, str(ROOT / "src"))
+#: the card's published rates (HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32, ...)
+from repro_torch.roofline import hw  # noqa: E402  (fails outside a checkout)
+
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-5  # kernel vs plain, sum combine
 PR_RTOL, PR_ATOL = 1e-4, 1e-9  # engine cuda vs torch, PageRank values
 SERVE_QUERIES, SERVE_ITERS = 32, 20
@@ -313,10 +345,8 @@ EARLIER_MS = {"ell_partials_lanes L=16": 1.0867, "ell_partials_lanes L=32": 1.98
               "segment_combine": 0.02301, "bloom_contains any": 0.0206,
               "bloom_contains any full scan": 0.2825,
               f"bloom_contains n={1 << 21}": 0.0351}
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
-#: H100 SXM float32 outside the tensor cores; the bound of 32-bit integer
+#: hw.PEAK_FLOPS_F32 (float32 outside the tensor cores) bounds 32-bit integer
 #: work too (its published rate is no higher), so the bound stays a least time
-F32_OPS_PER_S = 67e12
 DECODE_B, DECODE_HQ, DECODE_HKV, DECODE_D = 4, 16, 2, 128  # Qwen2.5-3B
 DECODE_LONG = 32768  # the config's longest context
 BLOOM_SETS = (1 << 10, 1 << 16)  # random active sets; plus every vertex
@@ -373,6 +403,12 @@ DELTA_PREFETCH = 8  # loader threads: dirty shards decode on the host
 #: (about 2.3 s each on the H100's machine) one at a time, and at 6 the
 #: phase took 155 s of its 150 s; cut from 4 to 3 to pay for lm_families
 PULSE_SEED, PULSE_ITERS = 29, 3
+#: the closed loop's ops and warm-up ops, and the open loop's (16 inserts
+#: after every PULSE_OPEN_OPS / 2 ops: two publishes); cut from 64 and 16,
+#: and 24 and 4, to pay for the dryrun and model_mesh phases (about 60 s:
+#: an open-loop op is about 3.4 s, a closed-loop op with its solo check 0.5)
+PULSE_CLOSED_OPS, PULSE_CLOSED_WARMUP = 24, 8
+PULSE_OPEN_OPS, PULSE_OPEN_WARMUP = 12, 2
 PULSE_SOLO_BUDGET_S = 40.0  # non-resident solo runs at the last version
 #: the main phase's non-resident cuda run (and its torch cross-check), cut
 #: from PageRank 5 and SSSP/WCC to convergence (6 iterations, about 3.7 s
@@ -398,6 +434,10 @@ TRAIN_SMOKE_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=12)
 TRAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "delta": 0.1}
 #: the step-3 moments: m0 of this std, v0 in [1, 2) x 1e-4
 TRAIN_M0_STD = 1e-4
+#: the dryrun phase: Qwen2.5-3B's cells on the 16 x 16 production mesh,
+#: then the paper's engine at eu-2015 scale, reckoned on a fake group
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_MESH = ((16, 16), ("data", "model"))
 
 
 def parse_args(argv):
@@ -411,6 +451,8 @@ def parse_args(argv):
                     help=argparse.SUPPRESS)  # the ingest phase's child process
     ap.add_argument("--train-resume-child", action="store_true",
                     help=argparse.SUPPRESS)  # the train phase's resume check
+    ap.add_argument("--dryrun-child", action="store_true",
+                    help=argparse.SUPPRESS)  # the dryrun phase's fake group
     return ap.parse_args(argv)
 
 
@@ -1305,7 +1347,8 @@ class Smoke:
             t0 = time.perf_counter()
             closed = LoadGenerator(
                 svc, Workload(classes=classes, seed=PULSE_SEED), mode="closed",
-                concurrency=8, batch_size=4, total_ops=64, warmup_ops=16).run()
+                concurrency=8, batch_size=4, total_ops=PULSE_CLOSED_OPS,
+                warmup_ops=PULSE_CLOSED_WARMUP).run()
             rep["closed_s"] = time.perf_counter() - t0
             quiesce(svc)
             c_snap = svc.metrics_snapshot()
@@ -1314,9 +1357,11 @@ class Smoke:
             if "slo" not in c_snap or any(v["slo"] == "admission_errors" for v
                                           in c_snap["slo"]["violations"]):
                 raise AssertionError(f"closed loop: slo block {c_snap.get('slo')}")
-            if closed.completed != 48 or closed.errors or closed.rejected:
+            if (closed.completed != PULSE_CLOSED_OPS - PULSE_CLOSED_WARMUP
+                    or closed.errors or closed.rejected):
                 raise AssertionError(f"closed loop: {c}")
-            print(f"  closed loop (8 x 4, 64 ops, 16 warm-up): {c['qps']:.3f} q/s "
+            print(f"  closed loop (8 x 4, {PULSE_CLOSED_OPS} ops, {PULSE_CLOSED_WARMUP} "
+                  f"warm-up): {c['qps']:.3f} q/s "
                   f"({c['iterations_per_op']:.2f} iterations an op), latency p50 "
                   f"{c['latency']['p50']:.3f} s p99 {c['latency']['p99']:.3f} s, "
                   f"queue wait p99 {c['queue_wait']['p99']:.3f} s, share "
@@ -1340,9 +1385,9 @@ class Smoke:
             with trace.tracing(tracer):
                 opened = LoadGenerator(
                     svc, Workload(classes=classes, seed=PULSE_SEED,
-                                  update_every=12, update_batch=16),
-                    mode="open", target_qps=target, poisson=True, total_ops=24,
-                    warmup_ops=4).run()
+                                  update_every=PULSE_OPEN_OPS // 2, update_batch=16),
+                    mode="open", target_qps=target, poisson=True,
+                    total_ops=PULSE_OPEN_OPS, warmup_ops=PULSE_OPEN_WARMUP).run()
                 quiesce(svc)
             rep["open_s"] = time.perf_counter() - t0
             if tracer.open_span_count() != 0:
@@ -1355,10 +1400,12 @@ class Smoke:
                           "dropped_events": tracer.dropped_events(),
                           "threads": tracer.thread_names()}
             v_last = svc.graph_version
-            if (opened.completed + opened.rejected != 20 or opened.errors
+            if (opened.completed + opened.rejected != PULSE_OPEN_OPS - PULSE_OPEN_WARMUP
+                    or opened.errors
                     or opened.updates_published != 2 or v_last != v_pre + 2):
                 raise AssertionError(f"open loop: {o}")
-            print(f"  open loop (Poisson, 24 ops, 4 warm-up, 2 x 16 inserts): "
+            print(f"  open loop (Poisson, {PULSE_OPEN_OPS} ops, {PULSE_OPEN_WARMUP} "
+                  f"warm-up, 2 x 16 inserts): "
                   f"offered {o['offered_qps']:.3f} q/s (target {target:.3f}), "
                   f"achieved {o['qps']:.3f} q/s, latency p50 "
                   f"{o['latency']['p50']:.3f} s p99 {o['latency']['p99']:.3f} s, "
@@ -1774,9 +1821,9 @@ class Smoke:
             min_ms=spread["kernel"]["min"],
             ratio_to_index_add=spread["kernel"]["median"] / spread["index_add_"]["median"],
             sector_bound_ms=self.combine_sectors(torch, perms, ptrs, rows)
-            / HBM_BYTES_PER_S * 1e3)
+            / hw.HBM_BW * 1e3)
         for kname, d in t.items():
-            d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
+            d["bound_ms"] = d["bytes"] / hw.HBM_BW * 1e3
         slots = sum(d.idx.numel() for d in shards)
         lens = torch.cat([(d.row_ptr[1:] - d.row_ptr[:-1]).long() for d in shards])
         self.report["combine_rows"] = {  # how skewed the combine's rows are
@@ -1891,7 +1938,7 @@ class Smoke:
                 library_ms=library_ms, bytes=cbytes)
             del x, lanes, part, rpart, acc, lib
         for kname, d in t.items():
-            d["bound_ms"] = d["bytes"] / HBM_BYTES_PER_S * 1e3
+            d["bound_ms"] = d["bytes"] / hw.HBM_BW * 1e3
             if kname in EARLIER_MS:
                 d["earlier_ms"] = EARLIER_MS[kname]
             if " L=" in kname:
@@ -1956,8 +2003,8 @@ class Smoke:
             q, k, v = qkv(B, S, S, torch.bfloat16)
             flops = 4 * B * 16 * S * S * 128 / 2  # causal: half the pairs
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
-            bound = {"operations": flops / BF16_FLOPS_PER_S * 1e3,
-                     "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+            bound = {"operations": flops / hw.PEAK_FLOPS_BF16 * 1e3,
+                     "bytes": nbytes / hw.HBM_BW * 1e3}
             by = max(bound, key=bound.get)
             d = dict(
                 ms=self.timed(lambda: FK.flash_attention(q, k, v, causal=True), reps),
@@ -2231,8 +2278,8 @@ class Smoke:
             n_valid = int(vd.sum())
             nbytes = 2 * (2 * q.numel() + 2 * n_valid * D) + vd.numel()
             flops = 4 * G * D * n_valid
-            bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "operations": flops / BF16_FLOPS_PER_S * 1e3}
+            bound = {"bytes": nbytes / hw.HBM_BW * 1e3,
+                     "operations": flops / hw.PEAK_FLOPS_BF16 * 1e3}
             by = max(bound, key=bound.get)
             d = dict(
                 ms=self.timed(lambda: FK.flash_decode(q, k, v, vd), 50),
@@ -2291,8 +2338,8 @@ class Smoke:
             pairs = Sq * Skv - (Sq * (Sq - 1) // 2 if causal else 0)  # causal: suffix
             flops = 4 * B * Hq * pairs * D
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, o
-            bound = {"operations": flops / BF16_FLOPS_PER_S * 1e3,
-                     "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+            bound = {"operations": flops / hw.PEAK_FLOPS_BF16 * 1e3,
+                     "bytes": nbytes / hw.HBM_BW * 1e3}
             by = max(bound, key=bound.get)
             reps = 5 if Sq * Skv * B * Hq > 1 << 26 else 20
             d = dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, D=D, causal=causal,
@@ -2647,6 +2694,280 @@ class Smoke:
         rep["resume"] = json.loads(proc.stdout.strip().splitlines()[-1])
         print(f"  resume at the smoke width: {json.dumps(rep['resume'])}")
 
+    def dryrun(self):
+        """The sharded dry run (:func:`dryrun_child`) in a child process: a
+        fake process group cannot share a process with an NCCL one.  The
+        card's own memory is read once, here, against ``hw.HBM_BYTES``."""
+        torch = self.torch
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  the card holds {total} B; hw.HBM_BYTES {hw.HBM_BYTES} B")
+        if not hw.HBM_BYTES <= total <= 1.1 * hw.HBM_BYTES:
+            raise AssertionError(f"total_memory {total} B is not the card's "
+                                 f"{hw.HBM_BYTES} B")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-child"],
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print("\n".join("  " + ln for ln in proc.stdout.strip().splitlines()[:-1]))
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun child failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        rep = self.report["dryrun"] = {"total_memory": total, "hbm_bytes": hw.HBM_BYTES,
+                                      "wall_s": wall, "cells": res}
+        for r in res:
+            t = r["terms"]
+            if not (r["ok"] and t["flops_per_dev"] > 0 and t["bytes_per_dev"] > 0
+                    and r["memory"]["peak_bytes"] > 0):
+                raise AssertionError(f"dryrun {r['arch']} x {r['shape']}: {r}")
+            r["fits_card"] = r["peak_est"] <= total
+        for r in res[:-1]:
+            if r["terms"]["collective_bytes_per_dev"] <= 0:
+                raise AssertionError(f"dryrun {r['shape']}: no collective on 256 cards")
+        rep["fits_card"] = {f"{r['arch']} x {r['shape']}": r["fits_card"] for r in res}
+        print(f"  fits the card's {total} B: {json.dumps(rep['fits_card'])}; "
+              f"child {wall:.1f} s")
+
+    def model_mesh(self):
+        """The model-mesh path on a (1, 1) DeviceMesh over a one-rank NCCL
+        group: (a) the smoke config's train step sharded against the
+        unsharded one, (b) a checkpoint resharded onto the mesh, (c) one
+        full-width Qwen2.5-3B step on the mesh against the train phase's
+        step 1, (d) the train phase's steady step against model FLOPs."""
+        import torch.distributed as dist
+        torch = self.torch
+        from repro_torch.distributed.sharding import SINGLE_POD_RULES, ShardingCtx
+        from repro_torch.launch.mesh import make_model_mesh
+
+        rep = self.report["model_mesh"] = {}
+        rdzv = tempfile.mkdtemp(prefix="model_mesh_")
+        dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_model_mesh((1, 1), ("data", "model"), device_type="cuda")
+            ctx = ShardingCtx(mesh=mesh, rules=dict(SINGLE_POD_RULES),
+                              attn_impl="torch")
+            self.model_mesh_step(ctx, rep)
+            self.model_mesh_reshard(ctx, rep, rdzv)
+            self.model_mesh_full(ctx, rep)
+        finally:
+            dist.destroy_process_group()
+        self.model_flops_share(rep)
+
+    def model_mesh_step(self, ctx, rep):
+        """(a): the same parameters, step-3 moments and batch through the
+        unsharded step and the (1, 1) mesh's; bitwise, or within TRAIN_TOL."""
+        import numpy as np
+        from torch.distributed.tensor import DTensor
+        from repro_torch import configs
+        from repro_torch.config import smoke_config
+        from repro_torch.data.tokens import DataConfig, make_batch
+        from repro_torch.distributed.fault_tolerance import elastic_reshard
+        from repro_torch.distributed.sharding import ShardingCtx, distribute_module
+        from repro_torch.models import model as M
+        from repro_torch.optim import adamw
+        from repro_torch.train.step import make_train_step
+
+        cfg = smoke_config(configs.get_config(LM_ARCH))
+        specs = M.param_specs(cfg)
+        batch = make_batch(DataConfig(seq_len=TRAIN_SMOKE_SEQ, global_batch=TRAIN_BATCH,
+                                      vocab_size=cfg.vocab_size, seed=self.args.seed), 0)
+        opt = adamw.AdamWConfig(**TRAIN_SMOKE_OPT)
+        whole = lambda t: (t.full_tensor() if isinstance(t, DTensor) else t)
+        host = lambda ts, c=1.0: {n: c * whole(t.detach()).cpu().numpy()
+                                  for n, t in ts.items()}
+        out = {}
+        for label, c in (("one", ShardingCtx(attn_impl="torch")), ("mesh", ctx)):
+            model, named, state = self._smoke_train_state(cfg, "cuda")
+            base = {"params": host(named), "m": host(state.m, opt.b1),
+                    "v": host(state.v, opt.b2)}
+            if c.mesh is not None:
+                distribute_module(model, c, c.param_sharding(specs))
+                state.m = elastic_reshard(state.m, specs, c)
+                state.v = elastic_reshard(state.v, specs, c)
+            step = make_train_step(cfg, c, opt)
+            _, state, _, met = step(model, state, None, batch)
+            named = dict(model.named_parameters())
+            out[label] = ({k: float(v) for k, v in met.items()},
+                          {"params": host(named), "m": host(state.m),
+                           "v": host(state.v)})
+        (m1, t1), (m2, t2) = out["one"], out["mesh"]
+        bitwise = m1 == m2 and all(
+            np.array_equal(t1[k][n], t2[k][n]) for k in t1 for n in t1[k])
+        d = {"metrics": {"one": m1, "mesh": m2}, "bitwise": bitwise,
+             "worst_change_err": {}}
+        if not bitwise:
+            for name in ("loss", "grad_norm"):
+                if not np.isclose(m2[name], m1[name], rtol=TRAIN_TOL[name], atol=0):
+                    raise AssertionError(f"model_mesh step: {name} {m2[name]} vs "
+                                         f"{m1[name]}")
+            for kind in ("params", "m", "v"):
+                worst = 0.0
+                for n, want in t1[kind].items():
+                    top = max(float(np.abs(want - base[kind][n]).max()), 1e-30)
+                    err = float((np.abs(t2[kind][n] - want)
+                                 - 2 * np.spacing(np.abs(want))).max()) / top
+                    worst = max(worst, err)
+                if worst > TRAIN_TOL["delta"]:
+                    raise AssertionError(f"model_mesh step: {kind} change err {worst}")
+                d["worst_change_err"][kind] = worst
+        rep["step"] = d
+        print(f"  (a) smoke step on the (1, 1) mesh against the unsharded step: "
+              f"{json.dumps(d)}")
+
+    def model_mesh_reshard(self, ctx, rep, tmp):
+        """(b): the smoke config's parameters checkpointed whole, restored
+        and placed on the mesh by their logical axes; bitwise."""
+        import numpy as np
+        from torch.distributed.tensor import DTensor
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.config import smoke_config
+        from repro_torch.distributed.fault_tolerance import elastic_reshard
+        from repro_torch.models import model as M
+        from repro_torch.models.params import reference_specs, reference_tree
+
+        cfg = smoke_config(configs.get_config(LM_ARCH))
+        model = M.init_params(self.args.seed, cfg, dtype=torch.float32, device="cuda")
+        named = dict(model.named_parameters())
+        tree = reference_tree(named, cfg, device="cpu")
+        ck = Checkpointer(tmp + "/ck")
+        ck.save(1, tree)
+        placed = elastic_reshard(ck.restore(1, reference_tree(named, cfg, device="meta")),
+                                 reference_specs(M.param_specs(cfg), cfg), ctx)
+        n = 0
+
+        def walk(got, want, path):
+            nonlocal n
+            for k, v in want.items():
+                if isinstance(v, dict):
+                    walk(got[k], v, path + (k,))
+                    continue
+                g = got[k]
+                if not (isinstance(g, DTensor) and tuple(g.device_mesh.shape) == (1, 1)
+                        and np.array_equal(g.full_tensor().cpu().numpy(), v.numpy())):
+                    raise AssertionError(f"model_mesh reshard: {'/'.join(path + (k,))}")
+                n += 1
+        walk(placed, tree, ())
+        rep["reshard"] = {"leaves": n, "bitwise": True}
+        print(f"  (b) checkpoint resharded onto the (1, 1) mesh: {n} leaves bitwise")
+
+    def model_mesh_full(self, ctx, rep):
+        """(c): Qwen2.5-3B as published, one step of TRAIN_BATCH x TRAIN_SEQ
+        tokens on the mesh from the train phase's seed and first batch."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data.tokens import DataConfig, make_batch
+        from repro_torch.distributed.sharding import distribute_module
+        from repro_torch.models import model as M
+        from repro_torch.optim import adamw
+        from repro_torch.train.step import make_train_step
+
+        train = self.report.get("train", {}).get("full")
+        if not train:
+            raise AssertionError("model_mesh (c) needs the train phase's step 1")
+        cfg = configs.get_config(LM_ARCH)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = M.init_params(self.args.seed, cfg, dtype=torch.float32, device="cuda")
+        distribute_module(model, ctx, ctx.param_sharding(M.param_specs(cfg)))
+        state = adamw.init(dict(model.named_parameters()))
+        # the launcher's optimiser settings for TRAIN_STEPS steps
+        opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                                total_steps=TRAIN_STEPS)
+        step = make_train_step(cfg, ctx, opt)
+        batch = make_batch(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                      vocab_size=cfg.vocab_size), 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _, met = step(model, state, None, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        want = train["loss"][0]
+        d = {"loss": loss, "train_step1_loss": want, "step_ms": ms,
+             "train_step1_ms": train["step_ms"][0], "peak_bytes": peak,
+             "train_peak_bytes": train["peak_bytes"],
+             "grad_norm": float(met["grad_norm"])}
+        rep["full"] = d
+        print(f"  (c) {cfg.name} on the (1, 1) mesh, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+              f"loss {loss:.6f} (train phase step 1 {want:.6f}), {ms:.1f} ms "
+              f"(train phase step 1 {train['step_ms'][0]:.1f} ms), peak {peak} B "
+              f"(train phase {train['peak_bytes']} B)")
+        rep["step_split"] = self.mesh_step_split(cfg, ctx, model, state, opt, batch)
+        del model, state, step
+        torch.cuda.empty_cache()
+        if not abs(loss - want) <= TRAIN_TOL["loss"] * abs(want):
+            raise AssertionError(f"model_mesh full width: loss {loss} vs the train "
+                                 f"phase's step 1 {want}")
+
+    def mesh_step_split(self, cfg, ctx, model, state, opt, batch):
+        """(e) a reading, not a check: where (c)'s host time goes.  Step 2
+        on the mesh under MeshOps (DTensor's sharding decisions cached by
+        step 1), then step 3 under DTensor's own dispatch alone (implicit
+        replication, no MeshOps), beside the train phase's steady step:
+        MeshOps costs step 2 less step 3, DTensor step 3 less the
+        unsharded step, and the first step's own cost is (c) less step 2."""
+        import numpy as np
+        from torch.distributed.tensor.experimental import implicit_replication
+        torch = self.torch
+        from repro_torch.distributed.sharding import MeshOps, ShardingCtx
+        from repro_torch.launch.dryrun import fallback_counts
+        from repro_torch.train.step import make_train_step
+
+        class DTensorOnly(ShardingCtx):
+            def scope(self, mode=None):
+                return implicit_replication()
+
+        def timed(c, mode=None):
+            nonlocal state
+            step = make_train_step(cfg, c, opt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (c.scope(mode) if mode is not None else contextlib.nullcontext()):
+                _, state, _, met = step(model, state, None, batch)
+            float(met["loss"])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        ops = MeshOps()
+        meshops_ms = timed(ctx, ops)
+        d = {"meshops_step_ms": meshops_ms, "fallbacks": fallback_counts(ops)}
+        try:
+            d["dtensor_only_step_ms"] = timed(DTensorOnly(
+                mesh=ctx.mesh, rules=ctx.rules, attn_impl=ctx.attn_impl))
+        except Exception as e:  # a reading: say why it was not taken
+            d["dtensor_only_step_ms"] = None
+            d["dtensor_only_error"] = f"{type(e).__name__}: {e}"[:300]
+        d["train_steady_step_ms"] = float(np.median(
+            self.report["train"]["full"]["step_ms"][1:]))
+        print(f"  (e) mesh step split: {json.dumps(d)} ({self.card})")
+        return d
+
+    def model_flops_share(self, rep):
+        """(d): a reading, not a check: 6 N D of the train phase's step over
+        its steady step time (steps 2..) at the card's bf16 peak."""
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.config import ShapeConfig
+        from repro_torch.roofline.analysis import model_flops
+
+        train = self.report["train"]["full"]
+        cfg = configs.get_config(LM_ARCH)
+        shape = ShapeConfig("train_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+        mf = model_flops(cfg, shape, "train")
+        steady_s = float(np.median(train["step_ms"][1:])) / 1e3
+        share = mf / (steady_s * hw.PEAK_FLOPS_BF16)
+        rep["model_flops_share"] = {"model_flops": mf, "steady_step_s": steady_s,
+                                    "peak_flops_bf16": hw.PEAK_FLOPS_BF16,
+                                    "share": share, "card": self.card}
+        print(f"  (d) the train phase's steady step: {mf:.4g} model FLOPs in "
+              f"{steady_s * 1e3:.1f} ms = {share:.4f} of {hw.PEAK_FLOPS_BF16:.4g} "
+              f"FLOP/s ({self.card})")
+
     def sentinel(self):
         """ell_update(variant="sentinel") on the main path's first batch
         (shards 0-3) with PageRank's first messages, each combine: bitwise
@@ -2715,13 +3036,13 @@ class Smoke:
             ms=self.timed(lambda: K.ell_partials_sentinel(planes, tws, table, **kw), 20),
             plain_ms=self.timed(lambda: K.ell_partials_sentinel_plain(
                 planes, tws, table, **kw), 3),
-            library_ms=None, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            library_ms=None, bytes=nbytes, bound_ms=nbytes / hw.HBM_BW * 1e3,
             bound_by="bytes", plane_bytes=plane_bytes,
             plane_dtype=str(planes[0].dtype),
             masked_ms=self.timed(lambda: K.ell_partials_masked(
                 idxs, masks, tws, msgs, **mkw), 20),
             masked_bound_ms=self.partials_bytes(torch, idxs, masks, tws, W, tr)
-            / HBM_BYTES_PER_S * 1e3,
+            / hw.HBM_BW * 1e3,
             staging_ms=self.timed(lambda: ops.extend_windows(msgs, W, "sum"), 20))
         self.entry_timings["ell_partials_sentinel"] = d
         rep["timing"] = d
@@ -2807,8 +3128,8 @@ class Smoke:
         if self.errs["bloom_contains"]:
             raise AssertionError("bloom kernel != plain version")
         nbytes, ops_n, probes, scanned = self.bloom_work(torch, staged, items)
-        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                 "operations": ops_n / F32_OPS_PER_S * 1e3}
+        bound = {"bytes": nbytes / hw.HBM_BW * 1e3,
+                 "operations": ops_n / hw.PEAK_FLOPS_F32 * 1e3}
         by = max(bound, key=bound.get)
         d = dict(
             ms=self.timed(lambda: BK.bloom_contains(staged.words, items,
@@ -2824,7 +3145,7 @@ class Smoke:
         for n, ids in sets.items():
             dev_ids = torch.from_numpy(ids).cuda()
             nb_, ops_, probes_ = self.bloom_bits_work(torch, *one, dev_ids)
-            bnd = {"bytes": nb_ / HBM_BYTES_PER_S * 1e3, "operations": ops_ / F32_OPS_PER_S * 1e3}
+            bnd = {"bytes": nb_ / hw.HBM_BW * 1e3, "operations": ops_ / hw.PEAK_FLOPS_F32 * 1e3}
             b_by = max(bnd, key=bnd.get)
             d["contains_one_filter"][n] = dict(
                 ms=self.timed(lambda: BK.bloom_contains(
@@ -2848,8 +3169,8 @@ class Smoke:
             empty, staged.num_bits, staged.num_hashes), items)
         d["full_scan_ms"] = self.timed(lambda: BK.bloom_contains(
             empty, items, reduce_any=True, **kw), 20)
-        d["full_scan_bound_ms"] = max(e_bytes / HBM_BYTES_PER_S,
-                                      e_ops / F32_OPS_PER_S) * 1e3
+        d["full_scan_bound_ms"] = max(e_bytes / hw.HBM_BW,
+                                      e_ops / hw.PEAK_FLOPS_F32) * 1e3
         d["full_scan_earlier_ms"] = EARLIER_MS["bloom_contains any full scan"]
         # the rate of random 32 B L2 sectors the scan and the bits reach
         d["full_scan_probes"] = e_probes
@@ -3028,6 +3349,51 @@ def ingest_child(args) -> int:
         "pass2_s": spans["ingest.scatter"], "finalize_s": spans["ingest.finalize"],
         "peak_rss_bytes": rss.peak, "rss_before_bytes": rss.start,
         "stats": dataclasses.asdict(stats)}))
+    return 0
+
+
+def dryrun_child(args) -> int:
+    """The dryrun phase's child: Qwen2.5-3B's ``DRYRUN_SHAPES`` and the
+    paper's engine at eu-2015 reckoned on the 16 x 16 mesh of a fake group
+    (``launch.dryrun``); prints each cell, the roofline and memory tables,
+    and, last, the cells as JSON."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    from repro_torch.config import SHAPES
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.roofline import report
+
+    shape, axes = DRYRUN_MESH
+    mesh = DR.fake_mesh(shape, axes)
+    cfg = configs.get_config(LM_ARCH)
+    cells = []
+    for sname in DRYRUN_SHAPES:
+        _, info = DR.lower_cell(cfg, SHAPES[sname], mesh, verbose=False)
+        cells.append(dc.asdict(DR.CellResult(
+            arch=LM_ARCH, shape=sname, mesh="single", ok=True,
+            seconds=info["seconds"], memory=info["memory"], terms=info["terms"],
+            model_flops=info["model_flops_global"],
+            flops_ratio=info["model_vs_counted_flops"], peak_est=info["peak_est"],
+            fits_hbm=info["fits_hbm"], microbatches=info["microbatches"],
+            fallbacks=info["fallbacks"])))
+    t0 = time.perf_counter()
+    g = DR.lower_graphmp(mesh, "eu-2015", verbose=False)
+    cells.append(dc.asdict(DR.CellResult(
+        arch="graphmp", shape="eu-2015", mesh="single", ok=True,
+        seconds=time.perf_counter() - t0, memory=g["memory"], terms=g["terms"],
+        peak_est=g["peak_est"], fits_hbm=g["fits_hbm"], fallbacks=g["fallbacks"])))
+    for r in cells:
+        t = r["terms"]
+        print(f"{r['arch']} x {r['shape']} on {shape}: {r['seconds']:.1f} s, "
+              f"flops/card {t['flops_per_dev']:.4g}, bytes/card "
+              f"{t['bytes_per_dev']:.4g}, collective bytes/card "
+              f"{t['collective_bytes_per_dev']:.4g}, dominant {t['dominant']}, "
+              f"peak/card {r['peak_est']} B, fits_hbm {r['fits_hbm']}, "
+              f"microbatches {r['microbatches']}, fallbacks {r['fallbacks']}")
+    print(report.render_table(cells, "single"))
+    print(report.render_memory_table(cells, "single"))
+    print(json.dumps(cells))
     return 0
 
 
@@ -3238,13 +3604,14 @@ def main(argv=None) -> int:
         return ingest_child(args)
     if args.train_resume_child:
         return train_resume_child(args)
+    if args.dryrun_child:
+        return dryrun_child(args)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch.core  # noqa: F401  (fails outside a checkout)
+    import repro_torch.core  # noqa: F401
 
     # f32 products in full f32: the plain versions are the references
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3258,6 +3625,7 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}")
     pin_zip_clock()
     smoke = Smoke(torch, args)
+    smoke.card = card
     t_all = time.perf_counter()
     smoke.phase("build", smoke.build)
     if not smoke.failures:
@@ -3267,6 +3635,8 @@ def main(argv=None) -> int:
         smoke.phase("lm_decode", smoke.lm_decode)
         smoke.phase("lm_families", smoke.lm_families)
         smoke.phase("train", smoke.train)
+        smoke.phase("dryrun", smoke.dryrun)
+        smoke.phase("model_mesh", smoke.model_mesh)
         smoke.phase("small_engine", smoke.small_engine)
         smoke.phase("main", smoke.main_path)
         if "main" not in smoke.failures:

@@ -10,9 +10,13 @@ are exercised by tests:
 - :class:`StragglerMonitor` tracks per-step wall times in a rolling
   window; steps slower than ``threshold`` x the median are flagged and
   fed to a callback.
-- :func:`elastic_reshard` places a restored tree for a new context.
-  Without a model mesh (none is ported yet: ``ShardingCtx(mesh=...)``
-  raises) that is a move to the one device.
+- :func:`elastic_reshard` places a restored tree for a new context:
+  on a model mesh, each leaf as a DTensor under the placements its
+  logical-axis spec names there (the restore path when the job shrinks
+  or grows); without one, a move to the one device.  Checkpoints store
+  logical axes only, so this composes with
+  :class:`repro_torch.checkpoint.checkpointer.Checkpointer` for elastic
+  restart.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Callable, Deque, List, Optional
 import torch
 
 from ..core.executor import resolve_device
-from .sharding import ShardingCtx
+from .sharding import ShardingCtx, distribute_host
 
 __all__ = ["PreemptionGuard", "StragglerEvent", "StragglerMonitor",
            "elastic_reshard"]
@@ -103,18 +107,37 @@ class StragglerMonitor:
 
 
 def elastic_reshard(tree, specs_tree, new_ctx: ShardingCtx, *, device="cuda"):
-    """Place a restored tree (nested dicts of tensors) for ``new_ctx``.
+    """Place a restored tree (nested dicts of tensors or host arrays) for
+    ``new_ctx``.
 
-    The reference ``device_put``s each leaf with the NamedSharding its
-    logical-axis spec names on the new mesh.  A context without a mesh has
-    one device, ``device``: every leaf moves there and ``specs_tree`` has
-    nothing to decide (``ShardingCtx(mesh=...)`` raises until model meshes
-    are ported)."""
-    dev = resolve_device(device)
+    On a mesh, as the reference ``device_put``s each leaf with the
+    NamedSharding its logical-axis spec names on the new mesh: each leaf
+    becomes a DTensor on ``new_ctx.mesh`` under ``new_ctx.placements``
+    of its spec (``specs_tree`` has the tree's keys, logical tuples at the
+    leaves), each rank slicing its shard from the whole host leaf it
+    restored and moving only that to its card
+    (``sharding.distribute_host``).  A
+    context without a mesh has one device, ``device``: every leaf moves
+    there and ``specs_tree`` has nothing to decide."""
+    if new_ctx.mesh is None:
+        dev = resolve_device(device)
 
-    def move(x):
+        def move(x):
+            if isinstance(x, dict):
+                return {k: move(v) for k, v in x.items()}
+            return None if x is None else torch.as_tensor(x).to(dev)
+
+        return move(tree)
+
+    mesh = new_ctx.mesh
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+
+    def place(x, spec):
         if isinstance(x, dict):
-            return {k: move(v) for k, v in x.items()}
-        return None if x is None else torch.as_tensor(x).to(dev)
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if x is None:
+            return None
+        return distribute_host(torch.as_tensor(x), mesh, new_ctx.placements(*spec), dev)
 
-    return move(tree)
+    return place(tree, specs_tree)

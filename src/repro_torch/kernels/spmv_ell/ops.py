@@ -45,6 +45,12 @@ holds the shards slot ``d`` owns this round, already on the slot's device.
   ``ell_update_lanes_mesh_multi`` launches once per group and slot.
 - ``ell_update_arrays`` is the global-index update of the distributed
   superstep: a plain gather, then the ``segment_combine`` kernel for sums.
+  The combine's order (built from the data) and the kernel's wrapper are
+  ``torch.library`` custom ops there, ``repro_torch::combine_order`` and
+  ``repro_torch::segment_combine``, each with a fake implementation of
+  its output shapes: the sharded dry run (``launch/dryrun.py``) reckons
+  the superstep on tensors that hold no data, and sees the kernel's op.
+  On real tensors they call the same functions (the kernel on the card).
 
 The lane steps' ``backend`` is the executor's: ``"cuda"`` launches the
 kernels, ``"torch"`` runs the plain tensor update.  They return the
@@ -57,7 +63,7 @@ plain versions run in their place.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -464,9 +470,36 @@ def ell_update_arrays(idx_global: torch.Tensor, valid, seg: torch.Tensor,
     else:
         g = torch.where(valid, msgs[gidx.clamp(0, msgs.numel() - 1)], ident)
     if combine == "sum":
-        perm, row_ptr = _combine_order(valid, seg, rows)
-        return K.segment_combine(g.sum(dim=1), perm, row_ptr, "sum")
+        perm, row_ptr = combine_order_op(valid, seg, rows)
+        return segment_combine_op(g.sum(dim=1), perm, row_ptr, "sum")
     part = g.amin(dim=1) if combine == "min" else g.amax(dim=1)
     acc = torch.full((rows,), ident, dtype=msgs.dtype, device=msgs.device)
     return acc.scatter_reduce_(0, seg.to(torch.int64), part,
                                reduce="amin" if combine == "min" else "amax")
+
+
+@torch.library.custom_op("repro_torch::combine_order", mutates_args=())
+def combine_order_op(mask: torch.Tensor, seg: torch.Tensor,
+                     rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``core.csr._combine_order`` as an op: ``(perm [n_ell], row_ptr
+    [rows + 1])``, both int32."""
+    return _combine_order(mask, seg, rows)
+
+
+@combine_order_op.register_fake
+def _(mask, seg, rows):
+    return (seg.new_empty(seg.shape, dtype=torch.int32),
+            seg.new_empty((rows + 1,), dtype=torch.int32))
+
+
+@torch.library.custom_op("repro_torch::segment_combine", mutates_args=())
+def segment_combine_op(part: torch.Tensor, perm: torch.Tensor,
+                       row_ptr: torch.Tensor, combine: str) -> torch.Tensor:
+    """One shard's ``kernel.segment_combine`` as an op (the kernel, and its
+    launch count, on the card)."""
+    return K.segment_combine(part, perm, row_ptr, combine)
+
+
+@segment_combine_op.register_fake
+def _(part, perm, row_ptr, combine):
+    return part.new_empty((row_ptr.shape[0] - 1,), dtype=torch.float32)

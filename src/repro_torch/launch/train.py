@@ -8,13 +8,19 @@ reference; without it, the full config.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --smoke --device cpu --steps 6 --ckpt-dir /tmp/ck
 
-Model meshes are not ported yet: with more than one visible card and no
-``--no-mesh`` the launcher raises rather than train on one card.
+A model mesh spans the ranks of a ``torchrun`` launch, one rank per card
+(NCCL; gloo with ``--device cpu``), as the reference's spans its devices:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch yi-6b \
+        --smoke --steps 10
+
+One process trains on one card, however many the machine has.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -23,7 +29,7 @@ from ..config import smoke_config
 from ..core.executor import resolve_device
 from ..data.tokens import DataConfig
 from ..distributed.fault_tolerance import PreemptionGuard
-from ..distributed.sharding import ShardingCtx
+from ..distributed.sharding import DEFAULT_RULES, SINGLE_POD_RULES, ShardingCtx
 from ..optim import adamw
 from ..optim.compression import CompressionConfig
 from ..train.loop import LoopConfig, LoopResult, train
@@ -31,15 +37,43 @@ from ..train.loop import LoopConfig, LoopResult, train
 __all__ = ["build_ctx", "main"]
 
 
+def _init_ranks(device: str) -> int:
+    """Join the launch's process group (``torchrun``'s environment: NCCL
+    with each rank on card ``LOCAL_RANK``, gloo on the CPU); the number
+    of ranks (1 outside a launch of several)."""
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not dist.is_initialized():
+        on_cuda = torch.device(device).type == "cuda"
+        if on_cuda:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if on_cuda else "gloo")
+    return world
+
+
 def build_ctx(args) -> ShardingCtx:
-    """The plain-attention context on one device; a mesh over several
-    cards (``ShardingCtx(mesh=...)``, which raises until it is ported)."""
-    dev = resolve_device(args.device)
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    """The reference's contexts over the ranks of the launch: no mesh on
+    one rank or with ``--no-mesh``; the production 2x16x16 ``("pod",
+    "data", "model")`` mesh from 512 ranks; else an ``(n // d, d)``
+    ``("data", "model")`` mesh, ``d`` the largest power of two whose
+    square is at most ``n``.  Attention is the plain path."""
+    from .mesh import make_model_mesh, make_production_model_mesh
+
+    n = _init_ranks(args.device)
     if n == 1 or args.no_mesh:
         return ShardingCtx(attn_impl="torch")
-    return ShardingCtx(mesh=[torch.device("cuda", i) for i in range(n)],
-                       attn_impl="torch")
+    kind = torch.device(args.device).type
+    if n >= 512:
+        mesh = make_production_model_mesh(multi_pod=True, device_type=kind)
+        return ShardingCtx(mesh=mesh, rules=dict(DEFAULT_RULES), attn_impl="torch")
+    # small meshes: (data, model) as square as possible
+    d = 1
+    while d * d <= n:
+        d *= 2
+    d //= 2
+    mesh = make_model_mesh((max(n // d, 1), d), ("data", "model"), device_type=kind)
+    return ShardingCtx(mesh=mesh, rules=dict(SINGLE_POD_RULES), attn_impl="torch")
 
 
 def main(argv=None) -> LoopResult:
@@ -57,18 +91,24 @@ def main(argv=None) -> LoopResult:
     ap.add_argument("--compress", default="none",
                     choices=["none", "topk", "int8"],
                     help="gradient compression (with error feedback)")
-    ap.add_argument("--no-mesh", action="store_true")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="no model mesh, even under a launch of several ranks")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the initial parameters")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu.  A model mesh spans the ranks "
+                         "of a torchrun launch; one process trains on one "
+                         "card, however many the machine has")
     args = ap.parse_args(argv)
 
     cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     ctx = build_ctx(args)
+    mesh = "none" if ctx.mesh is None else dict(zip(ctx.mesh.mesh_dim_names,
+                                                    ctx.mesh.shape))
     print(f"arch={cfg.name} params~{cfg.param_count/1e6:.1f}M "
-          f"device={resolve_device(args.device)}")
+          f"device={resolve_device(args.device)} mesh={mesh}")
 
     data_cfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                           vocab_size=cfg.vocab_size)

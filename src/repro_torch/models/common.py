@@ -8,6 +8,17 @@ its dtype rules: activations in bf16, norms and RoPE in f32, weights cast
 to the activation dtype at each use.  Parameters are created without
 gradients; the training step (``train/step.py``) turns them on for its
 backward pass only, so serving never builds a graph.
+
+Every parameter container has a mirror ``*_specs`` function that gives
+the same keys with *logical axis* tuples in place of tensors, as the
+reference's do; ``repro_torch.distributed.sharding`` maps logical axes to
+mesh axes.  Logical axis names used across the model zoo:
+
+- ``"embed"``: d_model dims (FSDP axis: data, pod)
+- ``"qkv"``, ``"mlp"``, ``"vocab"``, ``"inner"``: head, d_ff, vocabulary
+  and SSM inner dims (TP axis: model)
+- ``"expert"``: the MoE expert dim (expert parallel, the model axis)
+- ``None``: replicated
 """
 
 from __future__ import annotations
@@ -18,9 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.sharding import fsdp_gather, is_dtensor
+
 __all__ = ["he_init", "RMSNorm", "Linear", "Embedding", "rmsnorm",
            "rope_frequencies", "apply_rope", "sinusoidal_positions", "linear",
-           "embed", "param", "sigmoid", "silu", "gelu_tanh"]
+           "embed", "param", "sigmoid", "silu", "gelu_tanh", "rmsnorm_specs",
+           "layernorm_specs", "linear_specs", "embedding_specs", "flat_specs",
+           "tree_congruent"]
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -47,8 +62,16 @@ class RMSNorm(nn.Module):
 def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * params.scale.float()
+    out = xf * torch.rsqrt(var + eps) * fsdp_gather(params.scale).float()
     return out.to(x.dtype)
+
+
+def rmsnorm_specs() -> dict:
+    return {"scale": ("embed",)}
+
+
+def layernorm_specs() -> dict:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 # ---------------------------------------------------------------------- rope
@@ -119,10 +142,18 @@ class Linear(nn.Module):
                   if bias else None)
 
 
+def linear_specs(ax_in: Optional[str], ax_out: Optional[str], *,
+                 bias: bool = False) -> dict:
+    p = {"w": (ax_in, ax_out)}
+    if bias:
+        p["b"] = (ax_out,)
+    return p
+
+
 def linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params.w.to(x.dtype)
+    y = x @ fsdp_gather(params.w).to(x.dtype)
     if params.b is not None:
-        y = y + params.b.to(x.dtype)
+        y = y + fsdp_gather(params.b).to(x.dtype)
     return y
 
 
@@ -143,4 +174,95 @@ class Embedding(nn.Module):
 
 def embed(params: Embedding, tokens: torch.Tensor,
           dtype=torch.bfloat16) -> torch.Tensor:
-    return params.table[tokens].to(dtype)
+    table = fsdp_gather(params.table)
+    if is_dtensor(table):
+        return _sharded_embed(table, tokens, dtype)
+    return table[tokens].to(dtype)
+
+
+def _sharded_embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """``table[tokens]`` for a DTensor table ``[V, d]`` whose vocabulary a
+    model mesh may split (Megatron's vocab-parallel embedding): each rank
+    looks its own rows' tokens up in its vocabulary slice, zero outside
+    it, and the rows are summed over the mesh dims that split the
+    vocabulary.  DTensor's own rules fail here: indexing's backward (an
+    index_put of a batch-split gradient) on PyTorch 2.11, and its
+    embedding rule's masked partial sum meets a plain one in the
+    backward.  Returns a DTensor ``[*tokens.shape, d]`` split as the
+    tokens' rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    vocab = [d for d, p in enumerate(table.placements) if p == Shard(0)]
+    table = table.redistribute(mesh, [Shard(0) if d in vocab else Replicate()
+                                      for d in range(mesh.ndim)])
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    rows = [Shard(0) if p == Shard(0) and d not in vocab else Replicate()
+            for d, p in enumerate(tokens.placements)]
+    tok = tokens.redistribute(mesh, rows).to_local()
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)
+    # the slice's gradient: the rank's rows' partial sum on the batch split
+    local = table.to_local(grad_placements=[
+        Shard(0) if d in vocab else Partial() if rows[d] == Shard(0) else Replicate()
+        for d in range(mesh.ndim)])
+    out = _VocabEmbed.apply(local, tok, offset[0], [(mesh, d) for d in vocab]).to(dtype)
+    shape = torch.Size((*tokens.shape, table.shape[1]))
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+class _VocabEmbed(torch.autograd.Function):
+    """The local half of :func:`_sharded_embed`: ``local [v, d]`` holds
+    vocabulary ids ``v0 .. v0 + v``; ``groups`` are the (mesh, dim)
+    groups the vocabulary is split over."""
+
+    @staticmethod
+    def forward(ctx, local, tokens, v0, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        idx = tokens - v0
+        inside = (idx >= 0) & (idx < local.shape[0])
+        idx = torch.where(inside, idx, 0)
+        out = torch.where(inside[..., None], local[idx], 0.0)
+        for g in groups:
+            out = funcol.wait_tensor(funcol.all_reduce(out, "sum", g))
+        ctx.save_for_backward(idx, inside)
+        ctx.rows = local.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, inside = ctx.saved_tensors
+        grad = g.new_zeros((ctx.rows, g.shape[-1]))
+        grad.index_put_((idx,), torch.where(inside[..., None], g, 0.0), accumulate=True)
+        return grad, None, None, None
+
+
+def embedding_specs() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
+# ------------------------------------------------------------ tree utilities
+def flat_specs(specs, prefix: str = "") -> dict:
+    """A nested spec dict as ``{"a.b.c": logical tuple}`` (parameter names)."""
+    out = {}
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            out.update(flat_specs(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def tree_congruent(params, specs) -> bool:
+    """Same leaves: ``params`` (a module, or nested dicts of tensors) and
+    ``specs`` (nested or flat dicts of logical tuples) name the same
+    parameters."""
+    if isinstance(params, nn.Module):
+        names = {n for n, _ in params.named_parameters()}
+    else:
+        names = {n for n, v in flat_specs(params).items() if v is not None}
+    return names == set(flat_specs(specs))

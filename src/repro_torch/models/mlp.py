@@ -10,7 +10,7 @@ from torch import nn
 
 from . import common as C
 
-__all__ = ["MLP", "mlp"]
+__all__ = ["MLP", "mlp", "mlp_specs"]
 
 
 class MLP(nn.Module):
@@ -26,6 +26,19 @@ class MLP(nn.Module):
         else:  # plain gelu
             self.wu = C.Linear(d, ff, bias=True, **kw)
             self.wd = C.Linear(ff, d, bias=True, **kw)
+
+
+def mlp_specs(mlp_type: str) -> dict:
+    if mlp_type in ("swiglu", "geglu"):
+        return {
+            "wg": C.linear_specs("embed", "mlp"),
+            "wu": C.linear_specs("embed", "mlp"),
+            "wd": C.linear_specs("mlp", "embed"),
+        }
+    return {
+        "wu": C.linear_specs("embed", "mlp", bias=True),
+        "wd": C.linear_specs("mlp", "embed", bias=True),
+    }
 
 
 def mlp(params: MLP, x: torch.Tensor, mlp_type: str) -> torch.Tensor:

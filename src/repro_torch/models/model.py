@@ -30,13 +30,13 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..core.executor import resolve_device
-from ..distributed.sharding import ShardingCtx
+from ..distributed.sharding import ShardingCtx, fsdp_gather, is_dtensor
 from . import common as C
 from . import transformer as T
 from .attention import self_attention
 from .mlp import mlp
 
-__all__ = ["Model", "init_params", "forward", "train_loss", "prefill",
+__all__ = ["Model", "init_params", "param_specs", "forward", "train_loss", "prefill",
            "decode_step", "init_decode_caches", "pad_caches"]
 
 
@@ -87,6 +87,29 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16, *,
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     return Model(cfg, gen=gen, device=dev, dtype=dtype)
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each of :class:`Model`'s parameter names -> its logical axes.  A
+    layer's tensor has no group axis, so its spec is the reference's
+    without the leading ``"layers"`` (which every rule set replicates);
+    ``models/params.py``'s ``reference_path`` maps it back."""
+    p: Dict[str, Any] = {
+        "embed": C.embedding_specs(),
+        "layers": {str(i): T.block_specs(cfg, i % cfg.group_period)
+                   for i in range(cfg.num_layers)},
+        "final_norm": C.rmsnorm_specs(),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = C.linear_specs("embed", "vocab")
+    if cfg.encdec:
+        enc = _encoder_cfg(cfg)
+        p["encoder"] = {
+            "layers": {str(i): T.block_specs(enc, i % enc.group_period)
+                       for i in range(enc.num_layers)},
+            "final_norm": C.rmsnorm_specs(),
+        }
+    return C.flat_specs(p)
 
 
 def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -142,7 +165,6 @@ def _run_encoder_stack(layers: nn.ModuleList, x: torch.Tensor,
         h = C.rmsnorm(blk.ln1, x, enc_cfg.norm_eps)
         out, _ = self_attention(
             blk.attn, h, positions, enc_cfg, causal=False, impl=ctx.attn_impl,
-            ac=ctx.ac if ctx.attn_seq_shard else None,
             bf16_probs=ctx.attn_bf16_probs,
         )
         x = x + out
@@ -154,7 +176,7 @@ def _run_encoder_stack(layers: nn.ModuleList, x: torch.Tensor,
 def _head(params: Model, x: torch.Tensor, cfg: ModelConfig, ctx: ShardingCtx):
     x = C.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params.embed.table.T.to(x.dtype)
+        logits = x @ fsdp_gather(params.embed.table).T.to(x.dtype)
     else:
         logits = C.linear(params.lm_head, x)
     if cfg.logit_softcap:
@@ -199,13 +221,79 @@ def train_loss(
     if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
         # prefix positions carry no next-token loss
         logits = logits[:, batch["patch_embeds"].shape[1]:]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    # masked labels pick any finite entry: the mask zeroes it
-    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if is_dtensor(logits):
+        nll = _sharded_nll(logits.float(), labels.clamp(min=0))
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        # masked labels pick any finite entry: the mask zeroes it
+        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     total = loss + aux_coef * aux
     return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
+
+
+def _sharded_nll(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``-log_softmax(lf)[label]`` of DTensor logits ``[B, S, V]`` whose
+    vocabulary a model mesh may split: each rank works on its own rows
+    and vocabulary slice (Megatron's vocab-parallel cross-entropy), the
+    max, the sum of exponentials and the label's logit all-reduced over
+    the mesh dims that split the vocabulary.  DTensor's own log-softmax
+    would gather the whole vocabulary, and its backward placements
+    gathered the batch.  Returns a DTensor ``[B, S]``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, vdim = lf.device_mesh, lf.dim() - 1
+    rows = [Replicate() if isinstance(p, Shard) and p.dim == vdim else
+            (Replicate() if not isinstance(p, Shard) else p) for p in lf.placements]
+    lf = lf.redistribute(mesh, [p if isinstance(p, Shard) else Replicate()
+                                for p in lf.placements])
+    split = [d for d, p in enumerate(lf.placements)
+             if isinstance(p, Shard) and p.dim == vdim]
+    _, offset = compute_local_shape_and_global_offset(lf.shape, mesh, lf.placements)
+    labels = labels.redistribute(mesh, rows) if is_dtensor(labels) else \
+        DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                           run_check=False).redistribute(mesh, rows)
+    out = _VocabNLL.apply(lf.to_local(), labels.to_local(), offset[vdim],
+                          [(mesh, d) for d in split])
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=labels.shape,
+                              stride=labels.stride())
+
+
+class _VocabNLL(torch.autograd.Function):
+    """The local half of :func:`_sharded_nll`: ``local [b, S, v]`` f32
+    logits of vocabulary ids ``v0 .. v0 + v``, ``labels [b, S]``, and the
+    (mesh, dim) groups the vocabulary is split over."""
+
+    @staticmethod
+    def forward(ctx, local, labels, v0, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        def reduce(t, op):
+            for g in groups:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+            return t
+
+        m = reduce(local.amax(dim=-1, keepdim=True), "max")
+        z = local - m
+        e = torch.exp(z)
+        se = reduce(e.sum(dim=-1, keepdim=True), "sum")
+        idx = labels - v0
+        inside = (idx >= 0) & (idx < local.shape[-1])
+        idx = idx.clamp(0, local.shape[-1] - 1)
+        picked = torch.where(inside, torch.gather(z, -1, idx[..., None])[..., 0], 0.0)
+        picked = reduce(picked, "sum")
+        ctx.save_for_backward(e, se, idx, inside)
+        return torch.log(se[..., 0]) - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, inside = ctx.saved_tensors
+        grad = e / se * g[..., None]
+        hit = torch.where(inside, g, 0.0)
+        grad = grad.scatter_add(-1, idx[..., None], -hit[..., None])
+        return grad, None, None, None
 
 
 # ---------------------------------------------------------------- serving

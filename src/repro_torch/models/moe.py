@@ -15,6 +15,12 @@ order the reference's ``.at[tok].add`` applies its updates.  The einsums
 and the router are plain PyTorch: the reference computes them outside
 any Pallas kernel.
 
+Under a model mesh the routing, the dispatch into the buffer and the
+combine run on each rank's own batch rows (``sharding.on_local_shards``):
+each row routes alone, DTensor has no rule for ``searchsorted``, and the
+buffer is a new tensor each rank fills.  The expert einsums are DTensor
+ops on the buffer split over the ``expert`` axis.
+
 Returns the Switch load-balancing auxiliary loss beside the outputs.
 """
 
@@ -26,10 +32,10 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..distributed.sharding import ShardingCtx
+from ..distributed.sharding import ShardingCtx, fsdp_gather, is_dtensor, on_local_shards
 from . import common as C
 
-__all__ = ["MoE", "moe_ffn"]
+__all__ = ["MoE", "moe_ffn", "moe_specs"]
 
 
 class MoE(nn.Module):
@@ -46,6 +52,18 @@ class MoE(nn.Module):
                    C.param(C.he_init(gen, (E, d, ff), d, **kw)))
         self.wu = C.param(C.he_init(gen, (E, d, ff), d, **kw))
         self.wd = C.param(C.he_init(gen, (E, ff, d), ff, **kw))
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    p = {
+        "router": {"w": ("embed", None)},
+        "wg": ("expert", "embed_expert", "mlp_expert"),
+        "wu": ("expert", "embed_expert", "mlp_expert"),
+        "wd": ("expert", "mlp_expert", "embed_expert"),
+    }
+    if cfg.mlp_type == "gelu":
+        p.pop("wg")
+    return p
 
 
 def _capacity(seq: int, cfg: ModelConfig) -> int:
@@ -90,36 +108,75 @@ def _dispatch(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, cap: in
     return slot, tok, keep, gate_sorted, aux, order
 
 
+def _fill(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig, cap: int):
+    """Route ``x``'s rows and scatter each kept token into its expert's
+    slot: ``buf [B, E, cap, d]`` and what the combine needs."""
+    B, S, d = x.shape
+    E = cfg.num_experts
+    slot, tok, keep, gate_sorted, aux, order = _dispatch(x, router_w, cfg, cap)
+    buf = torch.zeros((B, E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.scatter_(1, _rows(slot, d), torch.gather(x, 1, _rows(tok, d)))
+    return buf[:, :E * cap].reshape(B, E, cap, d), slot, keep, gate_sorted, aux, order
+
+
+def _rows(idx: torch.Tensor, d: int) -> torch.Tensor:
+    return idx[..., None].expand(*idx.shape, d)
+
+
+def _combine(out_flat, slot, keep, gate_sorted, order, k: int) -> torch.Tensor:
+    """Each token's k expert outputs ``out_flat [B, E*cap, d]``, weighted by
+    their gates (a dropped one by 0), added in sorted order: ``[B, S, d]``."""
+    B, n, d = out_flat.shape
+    S = slot.shape[1] // k
+    contrib = torch.gather(out_flat, 1, _rows(torch.clamp(slot, max=n - 1), d))
+    weighted = contrib * (gate_sorted * keep).to(out_flat.dtype)[..., None]  # [B, S*k, d]
+    # each token's k entries: their sorted positions, in sorted order
+    pos = torch.argsort(order, dim=-1).reshape(B, S, k).sort(dim=-1).values
+    picked = torch.gather(weighted, 1, _rows(pos.reshape(B, S * k), d)).reshape(B, S, k, d)
+    y = torch.zeros((B, S, d), dtype=out_flat.dtype, device=out_flat.device)
+    for j in range(k):
+        y = y + picked[:, :, j]
+    return y
+
+
+def _whole_router(router_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The router's whole weight on each rank, to route its own rows of
+    ``x``: its gradient there is a partial sum over the mesh dims that
+    split ``x``'s rows, and the same on the others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = router_w.device_mesh
+    whole = router_w.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return whole.to_local(grad_placements=[
+        Partial() if p == Shard(0) else Replicate() for p in x.placements])
+
+
 def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig,
             ctx: ShardingCtx) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d].  Returns (y [B, S, d], aux_loss scalar)."""
     B, S, d = x.shape
     E, k, cap = cfg.num_experts, cfg.top_k, _capacity(S, cfg)
-    slot, tok, keep, gate_sorted, aux, order = _dispatch(x, params.router.w, cfg, cap)
+    router_w = fsdp_gather(params.router.w)
+    if is_dtensor(x):
+        rw = _whole_router(router_w, x)
+        buf, slot, keep, gate_sorted, aux, order = on_local_shards(
+            lambda xl: _fill(xl, rw, cfg, cap), (x,), None, None)
+    else:
+        buf, slot, keep, gate_sorted, aux, order = _fill(x, router_w, cfg, cap)
+    buf = ctx.ac(buf, "batch", "expert", None, None)
 
-    rows = lambda idx: idx[..., None].expand(*idx.shape, d)
-    buf = torch.zeros((B, E * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.scatter_(1, rows(slot), torch.gather(x, 1, rows(tok)))
-    buf = ctx.ac(buf[:, :E * cap].reshape(B, E, cap, d), "batch", "expert", None, None)
-
-    wd = params.wd.to(x.dtype)
+    wd = fsdp_gather(params.wd).to(x.dtype)
     if cfg.mlp_type == "gelu":
-        h = torch.einsum("becd,edf->becf", buf, params.wu.to(x.dtype))
+        h = torch.einsum("becd,edf->becf", buf, fsdp_gather(params.wu).to(x.dtype))
         h = C.gelu_tanh(h)
     else:
-        g = torch.einsum("becd,edf->becf", buf, params.wg.to(x.dtype))
-        u = torch.einsum("becd,edf->becf", buf, params.wu.to(x.dtype))
+        g = torch.einsum("becd,edf->becf", buf, fsdp_gather(params.wg).to(x.dtype))
+        u = torch.einsum("becd,edf->becf", buf, fsdp_gather(params.wu).to(x.dtype))
         act = C.silu(g) if cfg.mlp_type == "swiglu" else C.gelu_tanh(g)
         h = act * u
     out = torch.einsum("becf,efd->becd", h, wd)  # [B, E, cap, d]
     out_flat = ctx.ac(out, "batch", "expert", None, None).reshape(B, E * cap, d)
-
-    contrib = torch.gather(out_flat, 1, rows(torch.clamp(slot, max=E * cap - 1)))
-    weighted = contrib * (gate_sorted * keep).to(x.dtype)[..., None]  # [B, S*k, d]
-    # each token's k entries: their sorted positions, in sorted order
-    pos = torch.argsort(order, dim=-1).reshape(B, S, k).sort(dim=-1).values
-    picked = torch.gather(weighted, 1, rows(pos.reshape(B, S * k))).reshape(B, S, k, d)
-    y = torch.zeros((B, S, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        y = y + picked[:, :, j]
+    args = (out_flat, slot, keep, gate_sorted, order)
+    y = (on_local_shards(lambda *a: _combine(*a, k), args, None, None)
+         if is_dtensor(out_flat) else _combine(*args, k))
     return y, aux.mean()

@@ -15,6 +15,11 @@ keeps one tensor per layer: layer ``g * period + j`` holds group ``g`` of
   package; :func:`reference_groups` names the tensors each leaf stacks
   (gradient compression takes one threshold or scale over them, as the
   reference does over the stacked leaf).
+
+Under a model mesh the named tensors are DTensors: :func:`reference_tree`
+stacks their whole values (a collective every rank takes part in; only
+the ranks that keep the tree hold it), and loading slices each rank's
+shard from the host leaf (``sharding.distribute_host``).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from ..core.executor import resolve_device
 from .model import Model, _encoder_cfg
 
 __all__ = ["params_from_jax", "load_reference_tree", "reference_groups",
-           "reference_path", "reference_tree"]
+           "reference_path", "reference_specs", "reference_tree"]
 
 
 def reference_path(name: str, cfg: ModelConfig) -> Tuple[Tuple[str, ...], Optional[int]]:
@@ -58,25 +63,57 @@ def reference_groups(names: Iterable[str], cfg: ModelConfig) -> Dict[Tuple[str, 
 
 @torch.no_grad()
 def reference_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig,
-                   device=None) -> Dict:
+                   device=None, *, keep: bool = True) -> Optional[Dict]:
     """Nested dicts in the reference's layout: each stacked leaf is the
     ``torch.stack`` of its groups' tensors (a copy, on their device), an
     unstacked leaf the tensor itself.  With ``device`` every leaf is a new
     tensor there, each tensor copied once (``meta``: shapes and dtypes
-    only)."""
+    only).
+
+    A DTensor's whole value is gathered one tensor at a time (a collective
+    every rank of its mesh joins), so a rank's card holds one gathered
+    tensor at once.  ``keep=False`` joins the same gathers, keeps nothing
+    and returns ``None``: the ranks that do not write a checkpoint, so
+    that one host holds the whole tree."""
+    from ..distributed.sharding import full_tensor
+
+    def whole(n):
+        return full_tensor(named[n].detach())
+
     tree: Dict = {}
     for path, names in reference_groups(named, cfg).items():
-        ts = [named[n].detach() for n in names]
-        if reference_path(names[0], cfg)[1] is None:
-            leaf = ts[0] if device is None else ts[0].to(device, copy=True)
+        first = named[names[0]]
+        if device is not None and torch.device(device).type == "meta":
+            # shapes and dtypes only: no gather
+            stacked = reference_path(names[0], cfg)[1] is not None
+            shape = (len(names), *first.shape) if stacked else tuple(first.shape)
+            leaf = torch.empty(shape, dtype=first.dtype, device="meta")
+        elif not keep:
+            for n in names:
+                whole(n)
+            continue
+        elif reference_path(names[0], cfg)[1] is None:
+            leaf = whole(names[0]) if device is None else whole(names[0]).to(
+                device, copy=True)
         elif device is None:
-            leaf = torch.stack(ts)
+            leaf = torch.stack([whole(n) for n in names])
         else:
-            leaf = torch.empty((len(ts), *ts[0].shape), dtype=ts[0].dtype, device=device)
-            if leaf.device.type != "meta":
-                for i, t in enumerate(ts):
-                    leaf[i].copy_(t)
+            leaf = torch.empty((len(names), *first.shape), dtype=first.dtype,
+                               device=device)
+            for i, n in enumerate(names):
+                leaf[i].copy_(whole(n))
         _put(tree, path, leaf)
+    return tree if keep else None
+
+
+def reference_specs(specs: Mapping[str, tuple], cfg: ModelConfig) -> Dict:
+    """``{name: logical axes}`` (``models/model.py::param_specs``) in the
+    reference's layout: a stacked leaf's spec with the group axis
+    ``"layers"`` in front, as the reference's ``param_specs`` gives it."""
+    tree: Dict = {}
+    for name, spec in specs.items():
+        path, g = reference_path(name, cfg)
+        _put(tree, path, spec if g is None else ("layers",) + tuple(spec))
     return tree
 
 
@@ -115,6 +152,12 @@ def _copy(dst: torch.Tensor, src, path) -> None:
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{'/'.join(path)}: shape {tuple(src.shape)} != "
                          f"{tuple(dst.shape)}")
+    from ..distributed.sharding import distribute_host, is_dtensor
+
+    if is_dtensor(dst):
+        local = dst.to_local()
+        src = distribute_host(src, dst.device_mesh, dst.placements, local.device,
+                              local.dtype)
     dst.copy_(src)
 
 

@@ -26,12 +26,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from ..distributed.sharding import ShardingCtx
+from ..distributed.sharding import (ShardingCtx, fsdp_gather, is_dtensor,
+                                    on_local_shards, whole_heads)
 from . import common as C
 
 __all__ = ["chunked_linear_rnn", "linear_rnn_step", "SSD", "ssd_block",
            "ssd_state_init", "MLSTM", "mlstm_block", "mlstm_state_init",
-           "SLSTM", "slstm_block", "slstm_state_init"]
+           "SLSTM", "slstm_block", "slstm_state_init", "ssd_specs", "mlstm_specs",
+           "slstm_specs"]
 
 
 # ----------------------------------------------------------- chunked core
@@ -44,7 +46,14 @@ def chunked_linear_rnn(
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # [B, H, N, P]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [B,S,H,P] in v's dtype, h_final [B,H,N,P] f32)."""
+    """Returns (y [B,S,H,P] in v's dtype, h_final [B,H,N,P] f32).  Under a
+    model mesh each rank runs it on its own batch rows and heads."""
+    if is_dtensor(v):
+        args = (v, q, k, log_decay, in_scale) + ((h0,) if h0 is not None else ())
+        return on_local_shards(
+            lambda v, q, k, ld, s, *h: chunked_linear_rnn(q, k, v, ld, s, chunk,
+                                                          *h),
+            args, (2, 2, 2, 2, 2, 1)[:len(args)], (2, 1))
     B, S, H, N = q.shape
     P = v.shape[-1]
     if S % chunk:
@@ -96,7 +105,14 @@ def chunked_linear_rnn(
 
 def linear_rnn_step(q, k, v, log_decay, in_scale, h):
     """Single decode step of the same recurrence: q/k ``[B,H,N]``, v
-    ``[B,H,P]``, scalars ``[B,H]``, h ``[B,H,N,P]`` f32."""
+    ``[B,H,P]``, scalars ``[B,H]``, h ``[B,H,N,P]`` f32.  Under a model
+    mesh each rank runs it on its own batch rows and heads of ``h`` (the
+    einsum's merge of a split batch and head dim has no DTensor rule on
+    PyTorch 2.11)."""
+    if is_dtensor(h):
+        return on_local_shards(
+            lambda h, q, k, v, ld, s: linear_rnn_step(q, k, v, ld, s, h),
+            (h, q, k, v, log_decay, in_scale), (1,) * 6, (1, 1))
     a = torch.exp(log_decay.float())[..., None, None]
     h = a * h + in_scale.float()[..., None, None] * torch.einsum(
         "bhn,bhp->bhnp", k.float(), v.float())
@@ -140,6 +156,19 @@ class SSD(nn.Module):
         self.out_proj = C.Linear(di, d, **kw)
 
 
+def ssd_specs(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": C.linear_specs("embed", "inner"),
+        "conv_w": (None, "inner"),
+        "bc_proj": C.linear_specs("embed", None),
+        "dt_proj": C.linear_specs("embed", None),
+        "dt_bias": (None,),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "out_proj": C.linear_specs("inner", "embed"),
+    }
+
+
 def ssd_block(params: SSD, x: torch.Tensor, cfg: ModelConfig, ctx: ShardingCtx,
               state: Optional[dict] = None):
     """x [B,S,d]; ``state`` (decode) ``{"h": [B,H,N,P], "conv": [B,3,di]}``.
@@ -150,16 +179,17 @@ def ssd_block(params: SSD, x: torch.Tensor, cfg: ModelConfig, ctx: ShardingCtx,
     xz = ctx.ac(C.linear(params.in_proj, x), "batch", None, "inner")
     xin, z = xz.chunk(2, dim=-1)
     conv_state = state["conv"] if state is not None else None
-    xin, new_conv = _causal_conv(xin, params.conv_w, conv_state)
+    xin, new_conv = _causal_conv(xin, fsdp_gather(params.conv_w), conv_state)
     xin = C.silu(xin)
 
     bc = C.linear(params.bc_proj, x).float()  # [B,S,2N]
     b_t, c_t = bc.chunk(2, dim=-1)
-    dt = F.softplus(C.linear(params.dt_proj, x).float() + params.dt_bias)  # [B,S,H]
-    a = -torch.exp(params.a_log)  # [H]
+    dt = F.softplus(C.linear(params.dt_proj, x).float()
+                    + fsdp_gather(params.dt_bias))  # [B,S,H]
+    a = -torch.exp(fsdp_gather(params.a_log))  # [H]
     log_decay = dt * a  # [B,S,H]
 
-    xh = xin.reshape(B, S, H, P)
+    xh = whole_heads(xin, H).reshape(B, S, H, P)
     v = xh * dt[..., None].to(xh.dtype)  # fold dt into input
     qN = c_t[:, :, None, :].expand(B, S, H, N)
     kN = b_t[:, :, None, :].expand(B, S, H, N)
@@ -172,7 +202,7 @@ def ssd_block(params: SSD, x: torch.Tensor, cfg: ModelConfig, ctx: ShardingCtx,
                                 torch.ones_like(log_decay[:, 0]), state["h"])
         y = yv[:, None]
 
-    y = y + xh * params.d_skip[None, None, :, None].to(y.dtype)
+    y = y + xh * fsdp_gather(params.d_skip)[None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, di) * C.silu(z)
     return C.linear(params.out_proj, y), {"h": h, "conv": new_conv}
 
@@ -202,10 +232,25 @@ class MLSTM(nn.Module):
         self.out_proj = C.Linear(di, d, **kw)
 
 
+def mlstm_specs(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": C.linear_specs("embed", "inner"),
+        "conv_w": (None, "inner"),
+        # [di, di] square projections: shard the OUTPUT dim only (mapping
+        # both dims to the TP axis would name one mesh axis twice)
+        "wq": C.linear_specs(None, "inner"),
+        "wk": C.linear_specs(None, "inner"),
+        "wv": C.linear_specs(None, "inner"),
+        "w_if": C.linear_specs("inner", None, bias=True),
+        "gn_scale": ("inner",),
+        "out_proj": C.linear_specs("inner", "embed"),
+    }
+
+
 def _headwise_rms(x: torch.Tensor, scale: torch.Tensor, H: int) -> torch.Tensor:
     """Group norm over each head's channels (xLSTM uses GN post-cell)."""
     B, S, di = x.shape
-    xh = x.reshape(B, S, H, di // H).float()
+    xh = whole_heads(x, H).reshape(B, S, H, di // H).float()
     var = (xh * xh).mean(dim=-1, keepdim=True)
     xh = xh * torch.rsqrt(var + 1e-6)
     return (xh.reshape(B, S, di) * scale).to(x.dtype)
@@ -220,12 +265,12 @@ def mlstm_block(params: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     xz = ctx.ac(C.linear(params.in_proj, x), "batch", None, "inner")
     xin, z = xz.chunk(2, dim=-1)
     conv_state = state["conv"] if state is not None else None
-    xc, new_conv = _causal_conv(xin, params.conv_w, conv_state)
+    xc, new_conv = _causal_conv(xin, fsdp_gather(params.conv_w), conv_state)
     xc = C.silu(xc)
 
-    q = C.linear(params.wq, xc).reshape(B, S, H, P) * (P ** -0.5)
-    k = C.linear(params.wk, xc).reshape(B, S, H, P)
-    v = C.linear(params.wv, xin).reshape(B, S, H, P)
+    q = whole_heads(C.linear(params.wq, xc), H).reshape(B, S, H, P) * (P ** -0.5)
+    k = whole_heads(C.linear(params.wk, xc), H).reshape(B, S, H, P)
+    v = whole_heads(C.linear(params.wv, xin), H).reshape(B, S, H, P)
     gates = C.linear(params.w_if, xc).float()  # [B,S,2H]
     i_g = torch.sigmoid(gates[..., :H])
     f_g = torch.sigmoid(gates[..., H:] + 3.0)  # forget bias -> long memory
@@ -241,7 +286,7 @@ def mlstm_block(params: MLSTM, x: torch.Tensor, cfg: ModelConfig,
         y_ext = y1[:, None]
     num, den = y_ext[..., :P], y_ext[..., P:]
     y = num / torch.clamp(den.abs(), min=1.0)
-    y = _headwise_rms(y.reshape(B, S, di), params.gn_scale, H)
+    y = _headwise_rms(y.reshape(B, S, di), fsdp_gather(params.gn_scale), H)
     y = y * C.silu(z)
     return C.linear(params.out_proj, y), {"h": h, "conv": new_conv}
 
@@ -271,6 +316,16 @@ class SLSTM(nn.Module):
         self.out_proj = C.Linear(di, d, **kw)
 
 
+def slstm_specs(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": C.linear_specs("embed", "inner"),
+        # square gate projection: shard the output dim only (see mlstm_specs)
+        "w_gates": C.linear_specs(None, "inner", bias=True),
+        "r_gates": (None, None, None),
+        "out_proj": C.linear_specs("inner", "embed"),
+    }
+
+
 def slstm_block(params: SLSTM, x: torch.Tensor, cfg: ModelConfig,
                 ctx: ShardingCtx, state: Optional[dict] = None):
     """Sequential scalar LSTM with per-head recurrence, one step a token
@@ -280,13 +335,13 @@ def slstm_block(params: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     di, H = cfg.d_inner, cfg.num_heads
     P = di // H
     xin = C.linear(params.in_proj, x)
-    gates_x = C.linear(params.w_gates, xin).float()  # [B,S,4di]
+    gates_x = whole_heads(C.linear(params.w_gates, xin).float(), H)  # [B,S,4di]
     if state is None:
         h = torch.zeros((B, H, P), dtype=torch.float32, device=x.device)
         c = torch.zeros((B, H, P), dtype=torch.float32, device=x.device)
     else:
         h, c = state["h"], state["c"]
-    r = params.r_gates
+    r = fsdp_gather(params.r_gates)
     ys = []
     for t in range(S):
         rec = torch.einsum("bhp,hpq->bhq", h, r.to(h.dtype))  # [B,H,4P]

@@ -17,6 +17,12 @@ reference:
 - Three modes: ``train`` (no caches), ``prefill`` (returns the stacked
   caches), ``decode`` (writes each layer's slice of the caches in place,
   static cache shapes, position-masked attention).
+- Under a model mesh the residual stream is constrained to ``("batch",
+  None, None)`` after the mixer as well as at the block's end (the
+  reference constrains it at the end only; GSPMD reduces the mixer's
+  partial sums before the MLP by itself, DTensor would instead gather the
+  MLP's weights whole and compute on the partial sums).  Without a mesh
+  ``ac`` is the identity.
 - ``remat`` (train mode, under autograd): each layer runs under
   ``torch.utils.checkpoint``, so the backward pass recomputes one layer at
   a time, the bf16 casts of its weights included, instead of keeping every
@@ -38,15 +44,18 @@ from ..distributed.sharding import ShardingCtx
 from . import common as C
 from . import moe as MOE
 from . import ssm as SSM
-from .attention import Attention, cross_attention, self_attention
-from .mlp import MLP, mlp
+from .attention import (Attention, _split_heads, attn_specs, cross_attention,
+                        self_attention)
+from .mlp import MLP, mlp, mlp_specs
 
-__all__ = ["Block", "block_apply", "block_cache_init", "run_stack",
-           "stacked_cache_init"]
+__all__ = ["Block", "block_apply", "block_cache_init", "block_specs", "run_stack",
+           "stacked_cache_init", "stacked_cache_specs", "stacked_group_specs"]
 
-_MIXERS = {"ssd": (SSM.SSD, SSM.ssd_block, SSM.ssd_state_init),
-           "mlstm": (SSM.MLSTM, SSM.mlstm_block, SSM.mlstm_state_init),
-           "slstm": (SSM.SLSTM, SSM.slstm_block, SSM.slstm_state_init)}
+_MIXERS = {"ssd": (SSM.SSD, SSM.ssd_block, SSM.ssd_state_init, SSM.ssd_specs),
+           "mlstm": (SSM.MLSTM, SSM.mlstm_block, SSM.mlstm_state_init,
+                     SSM.mlstm_specs),
+           "slstm": (SSM.SLSTM, SSM.slstm_block, SSM.slstm_state_init,
+                     SSM.slstm_specs)}
 
 
 class Block(nn.Module):
@@ -75,6 +84,56 @@ class Block(nn.Module):
         elif mlp_kind == "moe":
             self.ln2 = C.RMSNorm(cfg.d_model, **kw)
             self.moe = MOE.MoE(cfg, gen=gen, **kw)
+
+
+def block_specs(cfg: ModelConfig, layer_in_group: int) -> dict:
+    """Logical axes of one :class:`Block`'s parameters (no group axis)."""
+    mixer, mlp_kind = cfg.layer_kind(layer_in_group)
+    p: Dict[str, Any] = {"ln1": C.rmsnorm_specs()}
+    if mixer == "attn":
+        p["attn"] = attn_specs(cfg)
+        if cfg.encdec:
+            p["ln_x"] = C.rmsnorm_specs()
+            p["xattn"] = attn_specs(cfg)
+    else:
+        p[mixer] = _MIXERS[mixer][3](cfg)
+    if mlp_kind == "dense":
+        p["ln2"] = C.rmsnorm_specs()
+        p["mlp"] = mlp_specs(cfg.mlp_type)
+    elif mlp_kind == "moe":
+        p["ln2"] = C.rmsnorm_specs()
+        p["moe"] = MOE.moe_specs(cfg)
+    return p
+
+
+def stacked_group_specs(cfg: ModelConfig) -> dict:
+    """The reference's stacked layout: ``{"layer_j": specs}`` with the
+    group axis ``"layers"`` in front of every leaf."""
+    def stack(tree):
+        return {k: stack(v) if isinstance(v, dict) else ("layers",) + v
+                for k, v in tree.items()}
+
+    return {f"layer_{j}": stack(block_specs(cfg, j))
+            for j in range(cfg.group_period)}
+
+
+def _block_cache_specs(cfg: ModelConfig, layer_in_group: int) -> dict:
+    """Logical axes of one block's decode cache, stacked over the groups
+    (mirrors :func:`block_cache_init`)."""
+    mixer, _ = cfg.layer_kind(layer_in_group)
+    if mixer == "attn":
+        kv = ("layers", "batch", "kvseq", "heads_kv", None)
+        return {"k": kv, "v": kv}
+    if mixer in ("ssd", "mlstm"):
+        return {"h": ("layers", "batch", "heads", None, None),
+                "conv": ("layers", "batch", None, "inner")}
+    return {"h": ("layers", "batch", "heads", None),
+            "c": ("layers", "batch", "heads", None)}
+
+
+def stacked_cache_specs(cfg: ModelConfig) -> dict:
+    return {f"layer_{j}": _block_cache_specs(cfg, j)
+            for j in range(cfg.group_period)}
 
 
 def block_cache_init(cfg: ModelConfig, layer_in_group: int, batch: int,
@@ -129,32 +188,31 @@ def block_apply(
             out, _ = self_attention(
                 params.attn, h, positions, cfg, impl=ctx.attn_impl,
                 block_k=ctx.attn_block_k,
-                ac=ctx.ac if ctx.attn_seq_shard else None,
                 bf16_probs=ctx.attn_bf16_probs,
             )
             if mode == "prefill":
                 # cache = computed K/V, written densely at positions 0..S (a
                 # second projection, as the reference computes it)
                 B, S, _ = h.shape
-                kh = C.linear(params.attn.wk, h).reshape(B, S, cfg.num_kv_heads,
-                                                         cfg.head_dim)
+                kh = _split_heads(C.linear(params.attn.wk, h), cfg.num_kv_heads,
+                                  cfg.head_dim)
                 kh = C.apply_rope(kh, positions, cfg.rope_theta)
-                vh = C.linear(params.attn.wv, h).reshape(B, S, cfg.num_kv_heads,
-                                                         cfg.head_dim)
+                vh = _split_heads(C.linear(params.attn.wv, h), cfg.num_kv_heads,
+                                  cfg.head_dim)
                 new_cache = {"k": kh, "v": vh}
-        x = x + out
+        x = ctx.ac(x + out, "batch", None, None)
         if cfg.encdec and memory is not None:
             hx = C.rmsnorm(params.ln_x, x, cfg.norm_eps)
-            x = x + cross_attention(params.xattn, hx, memory, cfg,
-                                    impl=ctx.attn_impl,
-                                    ac=ctx.ac if ctx.attn_seq_shard else None,
-                                    bf16_probs=ctx.attn_bf16_probs)
+            x = ctx.ac(x + cross_attention(params.xattn, hx, memory, cfg,
+                                           impl=ctx.attn_impl,
+                                           bf16_probs=ctx.attn_bf16_probs),
+                       "batch", None, None)
     else:
         out, st = _MIXERS[mixer][1](getattr(params, mixer), h, cfg, ctx,
                                     state=cache if mode == "decode" else None)
         if mode != "train":
             new_cache = st
-        x = x + out
+        x = ctx.ac(x + out, "batch", None, None)
 
     if mlp_kind == "dense":
         h2 = C.rmsnorm(params.ln2, x, cfg.norm_eps)

@@ -25,10 +25,10 @@ SweepIterStats     ragged_dispatches <= batches <= dispatches; mesh:
 IngestStats        spill + shard + meta bytes == bytes_written_total,
                    spill bytes read back exactly once
 CompactionStats    counters non-negative
+CollectiveStats    total_bytes == sum(bytes_by_kind.values())
 =================  ======================================================
 
-The reference's ``CollectiveStats`` adapter comes with the roofline of
-ROADMAP Queue 1 item 10.  Adapters dispatch on ``type(obj).__name__`` so
+Adapters dispatch on ``type(obj).__name__`` so
 this module imports nothing of the engine.
 
 Histograms are fixed log-bucket streaming estimators: ~7% bucket growth
@@ -666,6 +666,21 @@ def _ingest_compaction(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> N
     )
 
 
+def _ingest_collective(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> None:
+    """``roofline.analysis.CollectiveStats``: the dry run's collective bytes
+    and calls by kind."""
+    p = prefix or "collective"
+    for kind, b in s.bytes_by_kind.items():
+        reg.counter(f"{p}.bytes.{kind}").add(max(0.0, float(b)))
+    for kind, c in s.count_by_kind.items():
+        reg.counter(f"{p}.count.{kind}").add(max(0.0, float(c)))
+    reg.check(
+        f"{p}: total_bytes == sum(bytes_by_kind)",
+        s.total_bytes,
+        sum(s.bytes_by_kind.values()),
+    )
+
+
 _ADAPTERS: Dict[str, Callable[[MetricsRegistry, Any, Optional[str]], None]] = {
     "IOStats": _ingest_io,
     "CacheStats": _ingest_cache,
@@ -675,4 +690,5 @@ _ADAPTERS: Dict[str, Callable[[MetricsRegistry, Any, Optional[str]], None]] = {
     "SweepIterStats": _ingest_sweep_iter,
     "IngestStats": _ingest_ingest,
     "CompactionStats": _ingest_compaction,
+    "CollectiveStats": _ingest_collective,
 }

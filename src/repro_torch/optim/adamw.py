@@ -79,8 +79,9 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init(params: Mapping[str, torch.Tensor], dtype=torch.float32) -> AdamWState:
     """Zero moments beside each parameter.  ``dtype``: the moments' dtype
-    (bf16 halves the optimiser's memory; the update still runs in f32)."""
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=dtype, device=p.device)
+    (bf16 halves the optimiser's memory; the update still runs in f32).
+    A DTensor parameter's moments are DTensors of its placements."""
+    zeros = lambda: {n: torch.zeros_like(p, dtype=dtype, requires_grad=False)
                      for n, p in params.items()}
     return AdamWState(step=0, m=zeros(), v=zeros())
 

@@ -17,7 +17,8 @@ step's gradient, so the noise does not bias the sum):
 a layer's tensors over the groups, ``[num_groups, ...]``, and takes one
 threshold or one scale over the whole stack.  The port's per-layer tensors
 are passed as ``groups`` (``models/params.py::reference_groups``), each
-group compressed as one tensor.
+group compressed as one tensor.  Under a model mesh the gradients are
+DTensors, and the threshold or scale is still that of the whole leaf.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from ..distributed.sharding import full_tensor
 
 __all__ = ["CompressionConfig", "init_error_state", "compress_tree",
            "wire_bytes_ratio"]
@@ -39,14 +42,15 @@ class CompressionConfig:
 
 
 def init_error_state(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
             for n, p in params.items()}
+
 
 
 def _topk_threshold(parts: Sequence[torch.Tensor], ratio: float) -> torch.Tensor:
     """The k-th largest magnitude over ``parts`` taken as one tensor: the
     reference's ``lax.top_k(...)[0][-1]``."""
-    flat = torch.cat([x.reshape(-1).abs() for x in parts])
+    flat = torch.cat([full_tensor(x).reshape(-1).abs() for x in parts])
     k = max(1, int(flat.shape[0] * ratio))
     return torch.topk(flat, k).values[-1]
 
@@ -75,7 +79,7 @@ def compress_tree(grads: Mapping[str, torch.Tensor], err: Mapping[str, torch.Ten
             thresh = _topk_threshold(gfs, cfg.topk_ratio)
             ss = [gf * (gf.abs() >= thresh).to(gf.dtype) for gf in gfs]
         else:
-            top = torch.stack([gf.abs().max() for gf in gfs]).max()
+            top = torch.stack([full_tensor(gf.abs().max()) for gf in gfs]).max()
             scale = torch.clamp(top, min=1e-12) / 127.0
             ss = [torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
                   .float() * scale for gf in gfs]

@@ -8,6 +8,18 @@ monitor.  Used by ``launch/train.py``.
 Checkpoints hold ``{"params", "m", "v"}`` in the reference's stacked
 layout (``models/params.py::reference_tree``) and the step number, so
 either package resumes the other's run.
+
+Under a model mesh (``ctx.mesh``, one rank per card) every rank draws the
+same parameters from the seed and keeps its shards
+(``distributed.sharding.distribute_module``); every rank reads the same
+batch and the step keeps its part.  A checkpoint gathers the whole
+tensors one at a time (every rank takes part) and only rank 0 keeps them
+and writes them; on resume every rank reads the file and moves only its
+shards to its card.  So rank 0's host holds the whole f32 state, 12 bytes
+a parameter (``params``, ``m``, ``v``), and ``np.savez`` buffers it once
+more, as in the reference: mesh checkpoints work up to models whose
+24 bytes a parameter fit that host's memory (about 80 B parameters on a
+2 TB host); past that each rank would write its own shards.
 """
 
 from __future__ import annotations
@@ -22,7 +34,7 @@ from ..config import ModelConfig
 from ..core.executor import resolve_device
 from ..data.tokens import DataConfig, add_frontend_stub, make_batch
 from ..distributed.fault_tolerance import PreemptionGuard, StragglerMonitor
-from ..distributed.sharding import ShardingCtx
+from ..distributed.sharding import ShardingCtx, distribute_module
 from ..models import model as M
 from ..models.params import load_reference_tree, reference_tree
 from ..optim import adamw
@@ -58,11 +70,21 @@ class LoopResult:
 
 
 def _state_tree(named: Dict[str, torch.Tensor], opt_state: adamw.AdamWState,
-                cfg: ModelConfig, device) -> Dict:
+                cfg: ModelConfig, device, keep: bool = True) -> Optional[Dict]:
     """``{"params", "m", "v"}`` in the reference's layout, a new tensor on
-    ``device`` for each leaf (``meta``: shapes and dtypes only)."""
-    return {k: reference_tree(ts, cfg, device)
+    ``device`` for each leaf (``meta``: shapes and dtypes only);
+    ``keep=False``: join the gathers, keep nothing (``reference_tree``)."""
+    tree = {k: reference_tree(ts, cfg, device, keep=keep)
             for k, ts in (("params", named), ("m", opt_state.m), ("v", opt_state.v))}
+    return tree if keep else None
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a launch of
+    several ranks, the one process otherwise."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def train(
@@ -86,6 +108,8 @@ def train(
     dev = resolve_device(device)
     params = M.init_params(loop_cfg.seed, cfg, dtype=param_dtype or torch.float32,
                            device=dev)
+    if ctx.mesh is not None:
+        distribute_module(params, ctx, ctx.param_sharding(M.param_specs(cfg)))
     named = dict(params.named_parameters())
     opt_state = adamw.init(named)
     err_state = init_error_state(named) if compression else None
@@ -142,13 +166,18 @@ def train(
             want_ckpt = ckpt is not None
             res.preempted = True
         if want_ckpt:
-            ckpt.save_async(step, _state_tree(named, opt_state, cfg, "cpu"),
-                            copy=False, extra={"loss": loss})
+            tree = _state_tree(named, opt_state, cfg, "cpu", keep=_writer())
+            if tree is not None:
+                ckpt.save_async(step, tree, copy=False, extra={"loss": loss})
         if res.preempted:
             break
 
     if ckpt is not None:
         ckpt.wait()
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.barrier()  # the checkpoint is on disk before any rank returns
     res.final_step = step
     res.straggler_events = len(monitor.events)
     res.params = params

@@ -9,6 +9,12 @@ in one call, and optional microbatch gradient accumulation.  ``params`` is
 a :class:`~repro_torch.models.model.Model`; it and ``opt_state`` are
 updated in place and returned (a full-width model has no room for a
 second copy).  The parameters require gradients only inside the step.
+
+Under a model mesh (``ctx.mesh``) the parameters and moments are
+DTensors (``distributed.sharding.distribute_module``); the step places a
+plain batch on the mesh by its logical axes, runs in ``ctx.scope()``,
+brings each gradient to its parameter's placements (the reduction the
+reference's GSPMD inserts), and returns plain metrics.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Dict, Optional
 import torch
 
 from ..config import ModelConfig
-from ..distributed.sharding import ShardingCtx
+from ..distributed.sharding import ShardingCtx, full_tensor
 from ..models import model as M
 from ..models.params import reference_groups
 from ..optim import adamw
@@ -57,8 +63,10 @@ def make_train_step(
     ``accum_dtype`` accumulators (``.grad`` would sum in the parameters'
     dtype), then divided by the count.  As in the reference, the
     microbatched ``loss`` is the mean of the totals (the NLL plus the aux
-    term); unsplit, it is the NLL.  ``pod_axis`` names the cross-pod axis
-    of a model mesh, which is not ported yet.
+    term); unsplit, it is the NLL.  ``pod_axis`` names the cross-pod axis;
+    as in the reference it is accepted and changes nothing (the reduction
+    over every batch axis happens in the backward pass, and compression
+    acts on the reduced gradients).
 
     The flash kernel has no backward (the reference's Pallas kernel has
     none either; it trains on ``"xla"``), so a context with ``attn_impl``
@@ -66,26 +74,27 @@ def make_train_step(
     if ctx.attn_impl == "cuda":
         raise ValueError("the flash kernel has no backward: train with "
                          "ShardingCtx(attn_impl='torch')")
-    if pod_axis is not None:
-        raise NotImplementedError("model meshes are not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
 
     def grads_of(params, named, batch):
-        total, metrics = M.train_loss(params, batch, cfg, ctx)
+        total, metrics = M.train_loss(params, _placed(batch, ctx), cfg, ctx)
         gs = torch.autograd.grad(total, list(named.values()), allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
+        grads = {n: torch.zeros_like(p) if g is None else _like(g, p)
                  for (n, p), g in zip(named.items(), gs)}
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def step(params: M.Model, opt_state: adamw.AdamWState,
              err_state: Optional[Dict[str, torch.Tensor]], batch):
+        with ctx.scope():
+            return _step(params, opt_state, err_state, batch)
+
+    def _step(params, opt_state, err_state, batch):
         named = dict(params.named_parameters())
         dev = params.embed.table.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         with _trainable(list(named.values())):
             if microbatches > 1:
                 b = next(iter(batch.values())).shape[0] // microbatches
-                grads = {n: torch.zeros(p.shape, dtype=accum_dtype, device=dev)
+                grads = {n: torch.zeros_like(p, dtype=accum_dtype)
                          for n, p in named.items()}
                 loss_sum, aux_sum, tokens = 0.0, 0.0, 0.0
                 for i in range(microbatches):
@@ -110,9 +119,31 @@ def make_train_step(
 
         _, opt_state, opt_metrics = adamw.apply_updates(named, grads, opt_state,
                                                         opt_cfg)
-        return params, opt_state, err_state, {**metrics, **opt_metrics}
+        metrics = {k: full_tensor(v) for k, v in {**metrics, **opt_metrics}.items()}
+        return params, opt_state, err_state, metrics
 
     return step
+
+
+def _placed(batch, ctx: ShardingCtx):
+    """A plain batch as DTensors on ``ctx.mesh``, its leading dim on the
+    ``batch`` axes (every rank holds the same batch, so this splits it
+    locally); as it is without a mesh."""
+    if ctx.mesh is None:
+        return batch
+    return {k: ctx.ac(v, "batch", *([None] * (v.dim() - 1)))
+            for k, v in batch.items()}
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements: the backward leaves a
+    DTensor gradient partial (a sum still to reduce over the batch axes)
+    or replicated; the reduction is a reduce-scatter or an all-reduce."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_serve_steps(cfg: ModelConfig, ctx: ShardingCtx):

@@ -1309,3 +1309,121 @@ def test_run_distributed_on_a_one_rank_nccl_group(dev, tmp_path):
     finally:
         dist.destroy_process_group()
         eng.close()
+
+
+# ------------------------------------------------------------ model meshes
+@pytest.fixture
+def one_rank_mesh(dev, tmp_path):
+    """A (1, 1) ``("data", "model")`` DeviceMesh over a one-rank NCCL group
+    and its ``SINGLE_POD_RULES`` context (plain attention)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import SINGLE_POD_RULES, ShardingCtx
+    from repro_torch.launch.mesh import make_model_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv_mm",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_model_mesh((1, 1), ("data", "model"), device_type="cuda")
+        yield ShardingCtx(mesh=mesh, rules=dict(SINGLE_POD_RULES), attn_impl="torch")
+    finally:
+        dist.destroy_process_group()
+
+
+def _smoke_state(cfg, seed=7):
+    """Parameters from ``seed`` and step-3 moments, on the card."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    model = M.init_params(seed, cfg, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    named = dict(model.named_parameters())
+    state = adamw.init(named)
+    for n, p in named.items():
+        state.m[n].copy_(torch.randn(p.shape, generator=gen) * 1e-4)
+        state.v[n].copy_(1e-4 * (1 + torch.rand(p.shape, generator=gen)))
+    state.step = 3
+    model = model.to("cuda")
+    state.m = {n: t.cuda() for n, t in state.m.items()}
+    state.v = {n: t.cuda() for n, t in state.v.items()}
+    return model, state
+
+
+def test_model_mesh_train_step_matches_the_unsharded_step(one_rank_mesh):
+    """The smoke config's step on the (1, 1) mesh against the unsharded step
+    from the same parameters, moments and batch: bitwise expected; else
+    within the smoke's TRAIN_TOL (bf16 activations: loss rtol 1e-3,
+    grad_norm 1e-2, each leaf's change within 0.1 of its largest)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.config import smoke_config
+    from repro_torch.data.tokens import DataConfig, make_batch
+    from repro_torch.distributed.fault_tolerance import elastic_reshard
+    from repro_torch.distributed.sharding import ShardingCtx, distribute_module
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = smoke_config(configs.get_config("qwen2.5-3b"))
+    specs = M.param_specs(cfg)
+    batch = make_batch(DataConfig(seq_len=64, global_batch=4,
+                                  vocab_size=cfg.vocab_size, seed=7), 0)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=12)
+    whole = lambda t: (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+    out = []
+    for ctx in (ShardingCtx(attn_impl="torch"), one_rank_mesh):
+        model, state = _smoke_state(cfg)
+        base = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+        if ctx.mesh is not None:
+            distribute_module(model, ctx, ctx.param_sharding(specs))
+            state.m = elastic_reshard(state.m, specs, ctx)
+            state.v = elastic_reshard(state.v, specs, ctx)
+            assert all(isinstance(p, DTensor) for p in model.parameters())
+        _, state, _, met = make_train_step(cfg, ctx, opt)(model, state, None, batch)
+        out.append(({k: float(v) for k, v in met.items()},
+                    {n: whole(p).cpu().numpy() for n, p in model.named_parameters()},
+                    {n: whole(t).cpu().numpy() for n, t in state.v.items()}, base))
+    (m1, p1, v1, base), (m2, p2, v2, _) = out
+    if m1 == m2 and all(np.array_equal(p1[n], p2[n]) and np.array_equal(v1[n], v2[n])
+                        for n in p1):
+        return  # bitwise
+    assert np.isclose(m2["loss"], m1["loss"], rtol=1e-3, atol=0)
+    assert np.isclose(m2["grad_norm"], m1["grad_norm"], rtol=1e-2, atol=0)
+    for n in p1:
+        top = max(float(np.abs(p1[n] - base[n]).max()), 1e-30)
+        err = np.abs(p2[n] - p1[n]) - 2 * np.spacing(np.abs(p1[n]))
+        assert float(err.max()) <= 0.1 * top, n
+
+
+def test_model_mesh_reshard_of_a_checkpoint_is_bitwise(one_rank_mesh, tmp_path):
+    """A checkpoint of the smoke parameters restored and placed on the
+    (1, 1) mesh by their logical axes: every leaf a DTensor of that mesh,
+    bitwise the saved one."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.config import smoke_config
+    from repro_torch.distributed.fault_tolerance import elastic_reshard
+    from repro_torch.models import model as M
+    from repro_torch.models.params import reference_specs, reference_tree
+
+    cfg = smoke_config(configs.get_config("qwen2.5-3b"))
+    named = dict(M.init_params(7, cfg, dtype=torch.float32,
+                               device="cuda").named_parameters())
+    tree = reference_tree(named, cfg, device="cpu")
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, tree)
+    placed = elastic_reshard(ck.restore(1, reference_tree(named, cfg, device="meta")),
+                             reference_specs(M.param_specs(cfg), cfg), one_rank_mesh)
+
+    def walk(got, want):
+        for k, v in want.items():
+            if isinstance(v, dict):
+                walk(got[k], v)
+            else:
+                assert isinstance(got[k], DTensor)
+                assert tuple(got[k].device_mesh.shape) == (1, 1)
+                assert torch.equal(got[k].full_tensor().cpu(), v)
+    walk(placed, tree)

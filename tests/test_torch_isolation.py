@@ -59,6 +59,12 @@ import repro_torch.distributed.fault_tolerance
 import repro_torch.train.step
 import repro_torch.train.loop
 import repro_torch.launch.train
+import repro_torch.configs.graphmp
+import repro_torch.roofline.hw
+import repro_torch.roofline.analysis
+import repro_torch.roofline.report
+import repro_torch.launch.dryrun
+import repro_torch.distributed.sharding
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 import torch

@@ -402,8 +402,12 @@ def test_params_from_jax_rejects_a_missing_or_misshapen_leaf():
 
 
 def test_mesh_context_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ShardingCtx(mesh=object())
+    """A model mesh's dims need names (the rules name mesh axes)."""
+    unnamed = type("Mesh", (), {"mesh_dim_names": None})()
+    with pytest.raises(ValueError, match="names"):
+        ShardingCtx(mesh=unnamed)
+    named = type("Mesh", (), {"mesh_dim_names": ("data", "model")})()
+    assert ShardingCtx(mesh=named, rules={}).spec("embed", None) == (None, None)
 
 
 def test_prefill_reaches_the_kernel_wrapper_once_a_layer(monkeypatch):

@@ -9,15 +9,16 @@ waits for the multi-device port, ROADMAP Queue 1 item 8):
    admit -> plan -> load -> decode -> dispatch -> retire story visible
    across at least three thread lanes.
 2. **Conservation** — ``MetricsRegistry.ingest`` declares each stats
-   class's identities (the port's eight classes: the reference's nine but
-   ``CollectiveStats``) and one shared ``verify_conservation()`` replays
-   them.
+   class's identities (the reference's nine classes, ``CollectiveStats``
+   the dry run's collective counts) and one shared
+   ``verify_conservation()`` replays them.
 3. **Zero-cost disabled path** — with no tracer installed every call site
    returns the shared no-op span; results are unchanged.
 
-Against the reference, on the same inputs: the ``IngestStats`` and
-``CompactionStats`` adapters give the reference's snapshot and the same
-conservation verdicts (equal as values: no sum is involved).
+Against the reference, on the same inputs: the ``IngestStats``,
+``CompactionStats`` and ``CollectiveStats`` adapters give the reference's
+snapshot and the same conservation verdicts (equal as values: no sum is
+involved).
 """
 
 import json
@@ -39,6 +40,7 @@ from repro_torch.core.pipeline import PipelineStats, ShardLoadError
 from repro_torch.core.storage import IOStats
 from repro_torch.core.vsw import IterStats, VSWEngine
 from repro_torch.delta.recompact import CompactionStats
+from repro_torch.roofline.analysis import CollectiveStats
 from repro_torch.obs import (
     NULL_SPAN,
     ConservationError,
@@ -129,9 +131,10 @@ def test_registry_typed_instruments():
 
 
 def test_registry_ingests_all_eight_stats_classes():
-    """The reference's nine stats classes but ``CollectiveStats`` (ROADMAP
-    Queue 1 item 8).  ``IngestStats`` and ``CompactionStats`` raised
-    ``TypeError: no metrics adapter`` before their adapters were ported."""
+    """The reference's nine stats classes: the eight of the engine, and
+    ``CollectiveStats`` (the dry run's), the ninth.  ``IngestStats``,
+    ``CompactionStats`` and ``CollectiveStats`` raised ``TypeError: no
+    metrics adapter`` before their adapters were ported."""
     reg = MetricsRegistry()
     reg.ingest(IOStats(bytes_read=10, reads=1))
     reg.ingest(CacheStats(hits=2, misses=3))
@@ -151,9 +154,12 @@ def test_registry_ingests_all_eight_stats_classes():
         num_edges=10, spill_bytes_written=8, spill_bytes_read=8,
         shard_bytes_written=100, meta_bytes_written=20))
     reg.ingest(CompactionStats(shards_compacted=1, runs_absorbed=2))
+    reg.ingest(CollectiveStats({"all-gather": 64, "all-reduce": 8},
+                               {"all-gather": 1, "all-reduce": 1}))
     assert reg.verify_conservation() == []
     assert reg.num_checks > 0
     snap = reg.snapshot()
+    assert snap["collective.bytes.all-gather"] == 64
     assert snap["io.bytes_read"] == 10
     assert snap["cache.hits"] == 2
     assert snap["ingest.num_edges"] == 10
@@ -205,6 +211,23 @@ def test_ingest_and_compaction_adapters_match_the_reference(case):
     got = mine.verify_conservation(strict=False)
     assert got == ref.verify_conservation(strict=False)
     assert bool(got) == (case == 1)
+
+
+def test_collective_adapter_matches_the_reference():
+    """The same CollectiveStats through either package's registry: the same
+    snapshot and the same (passing) identity."""
+    from repro.roofline.analysis import CollectiveStats as RefCollectiveStats
+
+    by = {"all-gather": 4096, "all-reduce": 120, "reduce-scatter": 0,
+          "all-to-all": 7, "collective-permute": 0}
+    count = {"all-gather": 2, "all-reduce": 1, "reduce-scatter": 0,
+             "all-to-all": 1, "collective-permute": 0}
+    mine, ref = MetricsRegistry(), RefRegistry()
+    mine.ingest(CollectiveStats(dict(by), dict(count)), prefix="dry")
+    ref.ingest(RefCollectiveStats(dict(by), dict(count)), prefix="dry")
+    assert mine.snapshot() == ref.snapshot()
+    assert mine.num_checks == ref.num_checks
+    assert mine.verify_conservation() == ref.verify_conservation() == []
 
 
 # ------------------------------------------------------------- tracer basics

@@ -454,8 +454,9 @@ def test_elastic_reshard_moves_a_tree_to_the_device():
     t = {"a": np.ones(3, np.float32), "b": {"c": torch.zeros(2)}}
     out = elastic_reshard(t, None, ShardingCtx(attn_impl="torch"), device="cpu")
     assert isinstance(out["a"], torch.Tensor) and out["b"]["c"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ShardingCtx(mesh=[0, 1])
+    # a mesh whose dims have no names cannot hold logical-axis rules
+    with pytest.raises(ValueError, match="names"):
+        ShardingCtx(mesh=type("Mesh", (), {"mesh_dim_names": None})())
 
 
 # ------------------------------------------------------- end-to-end training
@@ -544,11 +545,17 @@ def test_launcher_trains_on_the_cpu_and_refuses_a_silent_single_card(tmp_path, c
     assert out[0].startswith("arch=qwen2.5-3b-smoke") and out[-1].startswith(
         "final: step=2 loss=")
     assert res.final_step == 2 and Checkpointer(str(tmp_path)).latest_step() == 2
-    # more than one card and no --no-mesh: the model-mesh error, not one card
+    # more than one card: one process trains on one card, and says so in
+    # its --help (a model mesh spans the ranks of a torchrun launch)
     monkeypatch.setattr(LT, "resolve_device", lambda d: torch.device("cuda", 0))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     args = type("A", (), {"device": "cuda", "no_mesh": False})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        LT.build_ctx(args)
+    ctx = LT.build_ctx(args)
+    assert ctx.mesh is None and ctx.attn_impl == "torch"
     args.no_mesh = True
     assert LT.build_ctx(args).attn_impl == "torch"
+    with pytest.raises(SystemExit):
+        LT.main(["--help"])
+    help_text = " ".join(capsys.readouterr().out.split())
+    assert "one process trains on one card" in help_text and "torchrun" in help_text

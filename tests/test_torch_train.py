@@ -246,8 +246,9 @@ def test_train_step_rejects_the_flash_kernel_context():
     for ctx in (LOCAL_CTX, ShardingCtx(attn_impl="cuda")):
         with pytest.raises(ValueError, match="no backward"):
             make_train_step(cfg, ctx, adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(cfg, TORCH_CTX, adamw.AdamWConfig(), pod_axis="pod")
+    # the cross-pod axis is accepted and changes nothing, as in the reference
+    assert callable(make_train_step(cfg, TORCH_CTX, adamw.AdamWConfig(),
+                                    pod_axis="pod"))
 
 
 def test_serving_is_unchanged_by_the_trainable_switch():

@@ -6,7 +6,10 @@
 Phases (any failure makes the exit code non-zero and suppresses the last
 line):
 
-1. build    compile ``src/repro_torch/csrc/*.cu`` for sm_90a into ``build/``.
+1. build    compile ``src/repro_torch/csrc/*.cu`` for sm_90a into ``build/``;
+            ptxas's registers and spill bytes of the flash kernel's head-dim
+            256 arm (``flash_fwd_tc_kernel<256>``) are printed, and a spill
+            fails.
 2. kernels  hold each ELL kernel against its plain PyTorch version on the card,
             for sum/min/max, at the default W=16384/K=128/TR=8 on an R-MAT
             shard, on a star-graph hub that needs row splitting, and on an
@@ -67,8 +70,10 @@ line):
             head dim names, timed beside its bound, the plain version and one
             SDPA call: whisper's encoder (S=1500, D=64, non-causal), its
             cross-attention at prefill (Sq=512, Skv=1500) and at a decode
-            step (Sq=1), and PaliGemma's MQA prefill (Hq=8, Hkv=1, S=768,
-            D=256, causal; the scalar kernel).  Then each arch serves 4
+            step (Sq=1), PaliGemma's MQA prefill (Hq=8, Hkv=1, S=768,
+            D=256, causal) and Gemma-7B's MHA prefill (H=16, S=512, D=256,
+            causal), both on the tensor-core kernel's two-warpgroup arm.
+            Then each arch serves 4
             requests of 512 tokens in one batch, 16 out, its frontend inputs
             drawn as the launcher draws them: token ids in range; flash
             launches equal to the self-attention layers at prefill plus
@@ -134,7 +139,7 @@ line):
             (Graph500 parameters, seed 7), 16 shards, batch_shards=4,
             prefetch_depth=2, cache_bytes=1 GiB: PageRank (5 iterations),
             SSSP and WCC (to convergence) on backend ``cuda`` with
-            device_resident=True, and all three at 2 iterations with
+            device_resident=True, and all three at 1 iteration with
             device_resident=False, each held against backend ``torch`` on
             the card at the same depth (min/max bitwise, PageRank within
             rtol=1e-4, atol=1e-9).  The kernels' launch counters must equal
@@ -142,7 +147,7 @@ line):
 9. serve    the serving path on the same store: ``GraphService`` with
             backend ``cuda``, device_resident=True, batch_shards=4,
             max_lanes=16, max_groups=2 answers 32 BFS/SSSP/PPR queries
-            (max_iters=20) in one fusion set through the ragged lane
+            (max_iters=8) in one fusion set through the ragged lane
             kernels; a ``ragged=False`` service on the same engine answers
             them through the lane kernel, bitwise the same; one query per
             program equals its solo ``VSWEngine.run`` bitwise; a service
@@ -209,7 +214,7 @@ line):
             its operations).
 14. trace   (diagnostic: a profiler error leaves "not measured" and does
             not fail the run) one resident PageRank run of 3 iterations and
-            one resident fusion set of 32 queries (max_iters=5) under
+            one resident fusion set of 32 queries (max_iters=3) under
             torch.profiler: each kernel's device time as the engine
             launches it, beside the engine's kernel_s, and the card's busy
             share of the run.
@@ -225,7 +230,7 @@ line):
             the script pins the zip clock for every store it writes.
 16. delta   live mutations on the ingested copy: a resident ``cuda``
             ``GraphService`` (batch_shards=4, max_lanes=16, max_groups=2)
-            answers 16 BFS/SSSP/WCC/PPR queries (max_iters=2; version 0),
+            answers 16 BFS/SSSP/WCC/PPR queries (max_iters=1; version 0),
             then two batches of 2^15 uniform inserts and 2^13 deletes of
             existing edges publish through ``apply_updates`` (versions 1
             and 2, every shard touched); at each version the queries are asked
@@ -253,13 +258,13 @@ line):
             0.01; admission errors, 0.05; queue-wait share, 0.95) answers
             ``benchmarks/bench_graphmp.py``'s fig_qps mix (BFS weight 2,
             SSSP, WCC, PPR at damping 0.85; max_iters=3, cut from 6; seed
-            29).  A closed loop (8 workers, submit_batch chunks of 4, 24
-            ops, 8 of them warm-up, no mutations; cut from 64 and 16 to pay
-            for dryrun and model_mesh): every record bitwise a solo
+            29).  A closed loop (8 workers, submit_batch chunks of 4, 16
+            ops, 4 of them warm-up, no mutations; cut from 64 and 16, then
+            24 and 8): every record bitwise a solo
             resident ``cuda`` ``VSWEngine``.  An open loop under the tracer
-            (Poisson arrivals at half the closed loop's rate, 12 ops, 2
-            warm-up, 16 random inserts after every 6th op; cut from 24, 4
-            and 12): each record at
+            (Poisson arrivals at half the closed loop's rate, 8 ops, 2
+            warm-up, 16 random inserts after every 4th op; cut from 24, 4
+            and 12, then 12 and 6): each record at
             the pre-stream version bitwise that solo engine; at the last
             published version, per program the record with the fewest
             iterations (within 40 s) bitwise a solo non-resident ``cuda``
@@ -289,6 +294,7 @@ import hashlib
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -303,7 +309,11 @@ from repro_torch.roofline import hw  # noqa: E402  (fails outside a checkout)
 
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-5  # kernel vs plain, sum combine
 PR_RTOL, PR_ATOL = 1e-4, 1e-9  # engine cuda vs torch, PageRank values
-SERVE_QUERIES, SERVE_ITERS = 32, 20
+#: the serve phase's queries and their depth (cut from 20 to 8: the two
+#: resident fusion sets' 20 iterations became 15 with backfill, about 15 s
+#: on the H100's machine, to bring the smoke back toward its time limit's
+#: half)
+SERVE_QUERIES, SERVE_ITERS = 32, 8
 SLEEP_CYCLES = 100_000_000  # about 50 ms of card time ahead of timed calls
 SEGMENT_REPS = 200  # segment_combine and index_add_, in turns
 L2_FLUSH_BYTES = 256 << 20  # written before each timed call; the L2 holds 50 MB
@@ -378,13 +388,14 @@ FAM_TRACED = ("moonshot-v1-16b-a3b", "whisper-large-v3")  # one traced prefill e
 FAM_REPEAT = ("moonshot-v1-16b-a3b",)  # served again from the seed, bitwise
 #: flash_attention at the families' shapes (B, Hq, Hkv, Sq, Skv, D, causal):
 #: whisper's encoder, its cross-attention at prefill and at a decode step,
-#: and paligemma's MQA prefill over 256 patches + 512 tokens (D=256: the
-#: scalar kernel)
+#: paligemma's MQA prefill over 256 patches + 512 tokens and Gemma-7B's MHA
+#: prefill (D=256: the tensor-core kernel's two-warpgroup arm)
 FLASH_FAMILY_SHAPES = {
     "whisper encoder B=4 H=20 S=1500 D=64": (4, 20, 20, 1500, 1500, 64, False),
     "whisper cross B=4 H=20 Sq=512 Skv=1500 D=64": (4, 20, 20, 512, 1500, 64, False),
     "whisper cross decode B=4 H=20 Sq=1 Skv=1500 D=64": (4, 20, 20, 1, 1500, 64, False),
     "paligemma B=4 Hq=8 Hkv=1 S=768 D=256 causal": (4, 8, 1, 768, 768, 256, True),
+    "gemma-7b B=4 H=16 S=512 D=256 causal": (4, 16, 16, 512, 512, 256, True),
 }
 #: npz members carry their write time; every store this script writes gets
 #: this one, so two stores of the same graph can be compared byte for byte
@@ -393,8 +404,10 @@ DELTA_PROGS = ("bfs", "sssp", "wcc", "ppr")
 DELTA_QUERIES = 16  # 4 a program
 #: cut from 5, then from 3 to pay for the mesh phase: every dirty sweep
 #: iteration decodes all 16 shards on the host (about 4 s on the H100's
-#: machine), and at 5 the phase took 400 s of the smoke's time limit
-DELTA_ITERS = 2
+#: machine), and at 5 the phase took 400 s of the smoke's time limit; then
+#: from 2 to 1 (about 21 s: the sweeps', solo runs' and torch check's
+#: second iterations) to bring the smoke back toward its time limit's half
+DELTA_ITERS = 1
 DELTA_INSERTS, DELTA_DELETES = 1 << 15, 1 << 13  # a batch; two batches
 DELTA_PREFETCH = 8  # loader threads: dirty shards decode on the host
 #: the pulse phase's mix is benchmarks/bench_graphmp.py's fig_qps (seed 29);
@@ -406,15 +419,18 @@ PULSE_SEED, PULSE_ITERS = 29, 3
 #: the closed loop's ops and warm-up ops, and the open loop's (16 inserts
 #: after every PULSE_OPEN_OPS / 2 ops: two publishes); cut from 64 and 16,
 #: and 24 and 4, to pay for the dryrun and model_mesh phases (about 60 s:
-#: an open-loop op is about 3.4 s, a closed-loop op with its solo check 0.5)
-PULSE_CLOSED_OPS, PULSE_CLOSED_WARMUP = 24, 8
-PULSE_OPEN_OPS, PULSE_OPEN_WARMUP = 12, 2
+#: an open-loop op is about 3.4 s, a closed-loop op with its solo check
+#: 0.5), then from 24 and 8, and 12, to bring the smoke back toward its
+#: time limit's half (the open loop's 4 ops, about 14 s)
+PULSE_CLOSED_OPS, PULSE_CLOSED_WARMUP = 16, 4
+PULSE_OPEN_OPS, PULSE_OPEN_WARMUP = 8, 2
 PULSE_SOLO_BUDGET_S = 40.0  # non-resident solo runs at the last version
 #: the main phase's non-resident cuda run (and its torch cross-check), cut
 #: from PageRank 5 and SSSP/WCC to convergence (6 iterations, about 3.7 s
 #: each on the H100's machine) to pay for the mesh phase, then from 3 to 2
-#: to pay for the train phase
-MAIN_STORE_ITERS = 2
+#: to pay for the train phase, then from 2 to 1 (8-15 s) to bring the
+#: smoke back toward its time limit's half
+MAIN_STORE_ITERS = 1
 MESH_ITERS = 3  # the mesh phase's engine runs: PageRank, SSSP, WCC
 MESH_QUERIES, MESH_QUERY_ITERS = 8, 5  # 2 each of BFS/SSSP/WCC/PPR
 #: the superstep's graph: R-MAT 2^18 vertices, 2^22 edges, seed 7
@@ -570,6 +586,29 @@ class Smoke:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     print("  " + line.strip())
+            if name == "flash_attention":
+                self.tc256_ptxas(text)
+
+    def tc256_ptxas(self, log):
+        """ptxas's registers and spill bytes for the flash kernel's head-dim
+        256 arm (``flash_fwd_tc_kernel<256>``), which must not spill."""
+        lines = log.splitlines()
+        at = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln
+              and "flash_fwd_tc_kernelILi256E" in ln]
+        if len(at) != 1:
+            raise AssertionError("ptxas reported no flash_fwd_tc_kernel<256>")
+        block = " ".join(lines[at[0] + 1:at[0] + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        if regs is None or spills is None:
+            raise AssertionError(f"flash_fwd_tc_kernel<256>: ptxas said {block!r}")
+        d = {"registers": int(regs.group(1)), "spill_stores": int(spills.group(1)),
+             "spill_loads": int(spills.group(2))}
+        self.report["flash_tc256_ptxas"] = d
+        print(f"  flash_fwd_tc_kernel<256>: {d['registers']} registers, spill "
+              f"stores {d['spill_stores']} B, spill loads {d['spill_loads']} B")
+        if d["spill_stores"] or d["spill_loads"]:
+            raise AssertionError(f"flash_fwd_tc_kernel<256> spills: {d}")
 
     def kernel_checks(self):
         import numpy as np
@@ -976,7 +1015,7 @@ class Smoke:
 
     def trace_fusion_set(self):
         """One resident fusion set of the serve phase's 32 queries
-        (max_iters=5) under the profiler."""
+        (max_iters=3, cut from 5: about 2-3 s) under the profiler."""
         from repro_torch.serve import GraphService
 
         svc = GraphService(self.serve_engine, batch_shards=4, max_lanes=16,
@@ -985,7 +1024,7 @@ class Smoke:
 
         def run():
             with svc.submit_batch():
-                futs = [svc.submit(p, v, max_iters=5) for p, v in self.queries]
+                futs = [svc.submit(p, v, max_iters=3) for p, v in self.queries]
             [f.result(timeout=600) for f in futs]
             settle(svc, 0)
             return svc.last_sweep_stats
@@ -2308,7 +2347,8 @@ class Smoke:
         """flash_attention at the families' shapes against its plain
         version (bf16 within 5e-2 and 2^-6 x max |plain|), on the arm the
         dispatch rule names, then timed beside its bound, the plain version
-        and one SDPA call."""
+        and one SDPA call; at head dim 256 also the scalar kernel (reached
+        through a k view off the dispatch rule's 16 B alignment)."""
         torch = self.torch
         from repro_torch.kernels.flash_attention import kernel as FK
 
@@ -2353,6 +2393,14 @@ class Smoke:
                      library_ms=self.timed(lambda: sdpa(q, k, v, is_causal=causal,
                                                         enable_gqa=Hq != Hkv), reps),
                      bound_ms=bound[by], bound_by=by, flops=flops, bytes=nbytes)
+            if D == 256:  # the scalar kernel this arm replaced: k 2 B off 16 B
+                km = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")[1:]
+                km = km.view(k.shape).copy_(k)
+                if FK.uses_tensor_cores(q, km, v, out):
+                    raise AssertionError(f"flash {label}: a misaligned k on the rule")
+                d["scalar_ms"] = self.timed(
+                    lambda: FK.flash_attention(q, km, v, causal=causal), 5)
+                del km
             rep[label] = d
             print(f"  flash_attention {label}: {json.dumps(d)}")
             del q, k, v, out, want, a, b

@@ -17,9 +17,7 @@
 //   balance point, so only the tensor cores can approach the bound.
 //
 // Dispatch (the wrapper's uses_tensor_cores, checked again here): a call
-// runs the tensor-core kernel when q is bf16, D is 64 or 128 (at 256 the
-// 64 x 256 f32 accumulator takes 128 registers a thread on top of the
-// scores: ptxas spilled 116 B, so 256 stays on the scalar kernel), every
+// runs the tensor-core kernel when q is bf16, D is 64, 128 or 256, every
 // tensor's last stride is 1 and its base pointer and other strides are
 // 16 B aligned.  Every other call (f32, other D, other strides) runs the
 // scalar kernel, so f32 keeps full f32 products (the tensor cores would
@@ -27,30 +25,41 @@
 // nothing is caught or retried.
 //
 // flash_attention_fwd_tc (bf16 on the tensor cores, warpgroup MMA).  A
-// CTA is one warpgroup (4 warps) owning 64 query rows of one (batch, query
-// head), 16 rows a warp; the q tiles are launched in reverse, the heavy
-// causal ones first.  Q and K/V tiles of 64 keys x D stay bf16 in shared
-// memory in wgmma's canonical 128 B-swizzled layout ([64][64] blocks of
-// 128 B rows, 16 B chunk c of row r at c ^ (r % 8)), filled by cp.async.cg
-// 16 B a thread into a ring of 2 stages, so tile j + 1's copy overlaps
-// tile j's products; rows past Skv are zero-filled.  Shared memory: 80 KB
-// at D = 128 (2 CTAs an SM), 40 KB at 64 (3).  S = Q K^T is
-// wgmma.m64n64k16 with both operands read from shared memory through
-// descriptors (bf16 in, f32 accumulate: products of bf16 values are exact
-// in f32, so this is the reference's f32 dot up to summation order).  The
-// causal and ragged masks and the online softmax run on the accumulator
-// registers (row max and sum folded over the quad of a row with xor
-// shuffles; exp2 of log2e-scaled scores).  P.V keeps the reference's f32
-// P: P is split into a bf16 high part and a bf16 low part (p - hi), about
-// 16 significant bits, and both multiply the same V tile (route (a)): a
-// warp's score accumulators are, packed, its A fragment, so P.V is
-// wgmma.m64nDk16 with A from registers and V read from shared memory
-// transposed (MN-major).  Each product is waited for before the next
-// step; overlapping P(j) V(j) with S(j + 1) (a third stage, or
-// FlashAttention-3's two score buffers) measured slower.  The epilogue
-// divides by l (clamped at 1e-30, so a row with no valid key stays 0),
-// rounds to bf16 and stores 16 B a lane through the output's strides,
-// staged in Q's tile.
+// warpgroup (4 warps) owns 64 query rows of one (batch, query head), 16
+// rows a warp, and every output column; the q tiles are launched in
+// reverse, the heavy causal ones first.  At D = 64 and 128 a CTA is one
+// warpgroup.  At D = 256 one warpgroup's 64 x 256 f32 output takes 128
+// registers a thread, so a CTA is two warpgroups (128 query rows, 8 warps)
+// under __launch_bounds__(256, 1), which lets ptxas give each thread up to
+// 255 registers: the output (two m64n128 accumulators), the scores and P's
+// fragments then fit without a spill, and each K/V tile serves 128 queries.
+// (Two other D = 256 designs were built and measured slower, PERF.md:
+// 64 rows a CTA with warpgroup w owning output columns [128 w, 128 w +
+// 128), both computing the whole score tile, and the same with the
+// scores' two halves of D summed through shared memory.)  Q tiles (one a
+// warpgroup) and K/V tiles of 64 keys x D stay bf16 in shared memory in
+// wgmma's canonical 128 B-swizzled layout ([64][64] blocks of 128 B rows,
+// 16 B chunk c of row r at c ^ (r % 8)), filled by cp.async.cg 16 B a
+// thread (every thread of the CTA) into a ring of 2 stages, so tile j +
+// 1's copy overlaps tile j's products; rows past Skv are zero-filled.
+// Shared memory: 40 KB at D = 64 (3 CTAs an SM), 80 KB at 128 (2), 192 KB
+// at 256 (1).  S = Q K^T is wgmma.m64n64k16 with both operands read from
+// shared memory through descriptors (bf16 in, f32 accumulate: products of
+// bf16 values are exact in f32, so this is the reference's f32 dot up to
+// summation order).  The causal and ragged masks and the online softmax
+// run on the accumulator registers (row max and sum folded over the quad
+// of a row with xor shuffles; exp2 of log2e-scaled scores).  P.V keeps the
+// reference's f32 P: P is split into a bf16 high part and a bf16 low part
+// (p - hi), about 16 significant bits, and both multiply the same V tile
+// (route (a)): a warp's score accumulators are, packed, its A fragment,
+// so P.V is wgmma.m64nNk16 (N = D up to 128, two products of 128 at 256)
+// with A from registers and V read from shared memory transposed
+// (MN-major).  Each product is waited for before the next step;
+// overlapping P(j) V(j) with S(j + 1) (a third stage, or
+// FlashAttention-3's two score buffers) measured slower at D = 128.  The
+// epilogue divides by l (clamped at 1e-30, so a row with no valid key
+// stays 0), rounds to bf16 and stores 16 B a lane through the output's
+// strides, staged in the warpgroup's Q tile.
 //
 // flash_attention_fwd (the scalar kernel: f32, and bf16 calls off the
 // rule).  The TPU grid carries (m, l, acc) in VMEM scratch across its
@@ -281,15 +290,21 @@ cudaError_t dispatch_d(const FlashArgs& a, int B, cudaStream_t stream) {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kBQ = 64;        // queries a CTA: one warpgroup, 16 rows a warp
+constexpr int kWQ = 64;        // query rows a warpgroup: 16 a warp
 constexpr int kBK = 64;        // keys a tile
-constexpr int kThreads = 128;  // the warpgroup
 constexpr int kStages = 2;     // K/V ring: tile j + 1 copies in during tile j
 
-template <int D> __host__ __device__ constexpr int min_ctas() { return D <= 64 ? 3 : 2; }
+// warpgroups a CTA, each owning kWQ query rows and every output column: at
+// D = 256 two (128 rows a CTA), else one
+template <int D> __host__ __device__ constexpr int warpgroups() { return D > 128 ? 2 : 1; }
+template <int D> __host__ __device__ constexpr int threads() { return 128 * warpgroups<D>(); }
+template <int D> __host__ __device__ constexpr int rows() { return kWQ * warpgroups<D>(); }
+template <int D> __host__ __device__ constexpr int min_ctas() {
+  return D <= 64 ? 3 : D <= 128 ? 2 : 1;
+}
 template <int D>
-constexpr size_t smem_bytes() {  // Q and the K/V ring
-  return sizeof(bf16) * static_cast<size_t>(kBQ + 2 * kStages * kBK) * D;
+constexpr size_t smem_bytes() {  // a Q tile a warpgroup and the K/V ring
+  return sizeof(bf16) * static_cast<size_t>(kWQ * warpgroups<D>() + 2 * kStages * kBK) * D;
 }
 // V is read MN-major (d contiguous): the descriptor's leading offset steps
 // along d (from one 64-wide block to the next, 8 KB), its stride offset
@@ -303,15 +318,16 @@ __device__ __forceinline__ int off(int r, int c) {
 }
 
 // rows [r0, r0 + 64) of a [*, D] bf16 matrix (row stride s_row elements)
-// into a tile by cp.async, 16 B a thread; rows past n zero-filled
+// into a tile by cp.async, 16 B a thread of the CTA; rows past n zero-filled
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long s_row,
                                           int r0, int n) {
   constexpr int CH = D / 8;  // 16 B chunks a row
-  static_assert(kBK * CH % kThreads == 0, "whole rounds of copies");
+  constexpr int NT = threads<D>();
+  static_assert(kBK * CH % NT == 0, "whole rounds of copies");
 #pragma unroll
-  for (int it = 0; it < kBK * CH / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads, r = i / CH, c = i % CH;
+  for (int it = 0; it < kBK * CH / NT; ++it) {
+    const int i = threadIdx.x + it * NT, r = i / CH, c = i % CH;
     const bool ok = r0 + r < n;
     const bf16* src = ok ? base + static_cast<long long>(r0 + r) * s_row + c * 8 : base;
     mma::cp_async_16(dst + off(r, c * 8), src, ok);
@@ -319,39 +335,48 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, min_ctas<D>())
+__global__ void __launch_bounds__(threads<D>(), min_ctas<D>())
 flash_fwd_tc_kernel(const __grid_constant__ FlashArgs a) {
   constexpr int kTile = kBK * D;  // elements of a Q, K or V tile
+  constexpr int WG = warpgroups<D>();
+  // the output as NB accumulators of DN columns each (one wgmma's N <= 128)
+  constexpr int NB = D > 128 ? D / 128 : 1, DN = D / NB;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTile;             // [kStages] tiles
-  bf16* Vs = Ks + kStages * kTile;   // [kStages] tiles
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [WG] tiles
+  bf16* Ks = Qs + WG * kTile;                    // [kStages] tiles
+  bf16* Vs = Ks + kStages * kTile;               // [kStages] tiles
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int wg = threadIdx.x >> 7;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / a.Hq, h = bh % a.Hq, hk = h / a.group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heavy causal tiles first
-  const int r0 = warp * 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rows<D>();  // heavy causal tiles first
+  const int r0 = warp * 16;         // this warp's rows in its warpgroup's tile
+  const int w0 = q0 + wg * kWQ;     // this warpgroup's first query row
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk[0] + hk * a.sk[1];
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv[0] + hk * a.sv[1];
   const int off_q = a.Skv - a.Sq;  // query i sits at key position i + off_q
-  // keys past the tile's last query position are masked for every row:
+  // keys past the CTA's last query position are masked for every row:
   // their tiles are never loaded
-  const int kend = a.causal ? min(a.Skv, q0 + kBQ + off_q) : a.Skv;
+  const int kend = a.causal ? min(a.Skv, q0 + rows<D>() + off_q) : a.Skv;
   const int n_tiles = (kend + kBK - 1) / kBK;
 
-  load_tile<D>(Qs, qb, a.sq[2], q0, a.Sq);
+#pragma unroll
+  for (int w = 0; w < WG; ++w) load_tile<D>(Qs + w * kTile, qb, a.sq[2], q0 + w * kWQ, a.Sq);
   load_tile<D>(Ks, kb, a.sk[2], 0, a.Skv);
   load_tile<D>(Vs, vb, a.sv[2], 0, a.Skv);
   mma::cp_async_commit();
 
-  float o[D / 2];  // the 64 x D output, mma.sync m16n8 layout a warp
+  float o[NB][DN / 2];  // the 64 x D output, mma.sync m16n8 layout a warp
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) o[n][i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // rows g, g + 8
   const float sl2 = a.scale * 1.4426950408889634f;  // scores in log2 units
-  const int qpos0 = q0 + r0 + g + off_q;            // key position of row g
+  const int qpos0 = w0 + r0 + g + off_q;            // key position of row g
+  const bf16* Qw = Qs + wg * kTile;
 
   for (int j = 0; j < n_tiles; ++j) {
     mma::cp_async_wait<0>();
@@ -375,7 +400,7 @@ flash_fwd_tc_kernel(const __grid_constant__ FlashArgs a) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int e = (kk >> 2) * (kBK * 64) + (kk & 3) * 16;
-      mma::wgmma_m64n64k16_ss(s, mma::wgmma_desc(Qs + e, 16, kAtom),
+      mma::wgmma_m64n64k16_ss(s, mma::wgmma_desc(Qw + e, 16, kAtom),
                               mma::wgmma_desc(Kt + e, 16, kAtom), kk > 0);
     }
     mma::wgmma_commit();
@@ -385,7 +410,7 @@ flash_fwd_tc_kernel(const __grid_constant__ FlashArgs a) {
     // scale, mask (only tiles that cross Skv or this warp's diagonal);
     // s[4 n + e]: key 8 n + 2 t + (e & 1), row g + 8 (e >> 1)
     const int k0 = j * kBK;
-    const bool masked = k0 + kBK > a.Skv || (a.causal && k0 + kBK - 1 > q0 + r0 + off_q);
+    const bool masked = k0 + kBK > a.Skv || (a.causal && k0 + kBK - 1 > w0 + r0 + off_q);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = s[i] * sl2;
@@ -420,7 +445,9 @@ flash_fwd_tc_kernel(const __grid_constant__ FlashArgs a) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) o[n][i] *= alpha[(i >> 1) & 1];
 
     // O += P V, P as hi + lo bf16 parts straight from the accumulators
     uint32_t ph[4][4], pl[4][4];
@@ -430,22 +457,28 @@ flash_fwd_tc_kernel(const __grid_constant__ FlashArgs a) {
       const float c1[4] = {s[8 * kk + 4], s[8 * kk + 5], s[8 * kk + 6], s[8 * kk + 7]};
       mma::p_fragments(c0, c1, ph[kk], pl[kk]);
     }
-    mma::fence_regs(o);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) mma::fence_regs(o[n]);
     mma::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t dv = mma::wgmma_desc(Vt + kk * 16 * 64, kBlock, kAtom);
-      mma::wgmma_rs_mn(o, ph[kk], dv);
-      mma::wgmma_rs_mn(o, pl[kk], dv);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {  // V's column blocks of accumulator n
+        const uint64_t dv = mma::wgmma_desc(Vt + n * (DN / 64) * (kBK * 64) + kk * 16 * 64,
+                                            kBlock, kAtom);
+        mma::wgmma_rs_mn(o[n], ph[kk], dv);
+        mma::wgmma_rs_mn(o[n], pl[kk], dv);
+      }
     }
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
-    mma::fence_regs(o);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) mma::fence_regs(o[n]);
   }
   mma::cp_async_wait<0>();  // only empty groups remain
 
-  // epilogue: O / l in bf16, staged in Q's tile, then 16 B stores along
-  // each output row through the output's strides
+  // epilogue: O / l in bf16, staged in the warpgroup's Q tile, then 16 B
+  // stores along each output row through the output's strides
   float li[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -453,23 +486,28 @@ flash_fwd_tc_kernel(const __grid_constant__ FlashArgs a) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     li[r] = fmaxf(l[r], 1e-30f);
   }
-  __syncthreads();  // every wgmma read of Qs is done
+  __syncthreads();  // every wgmma read of the Q tiles is done
+  bf16* Qo = Qs + wg * kTile;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(Qs + off(r0 + g, 8 * n + 2 * t)) =
-        mma::pack_bf16(o[4 * n] / li[0], o[4 * n + 1] / li[0]);
-    *reinterpret_cast<uint32_t*>(Qs + off(r0 + g + 8, 8 * n + 2 * t)) =
-        mma::pack_bf16(o[4 * n + 2] / li[1], o[4 * n + 3] / li[1]);
+  for (int n = 0; n < NB; ++n) {
+#pragma unroll
+    for (int c = 0; c < DN / 8; ++c) {
+      const int col = n * DN + 8 * c + 2 * t;
+      *reinterpret_cast<uint32_t*>(Qo + off(r0 + g, col)) =
+          mma::pack_bf16(o[n][4 * c] / li[0], o[n][4 * c + 1] / li[0]);
+      *reinterpret_cast<uint32_t*>(Qo + off(r0 + g + 8, col)) =
+          mma::pack_bf16(o[n][4 * c + 2] / li[1], o[n][4 * c + 3] / li[1]);
+    }
   }
   __syncwarp();  // a warp stores its own 16 rows
   bf16* ob = static_cast<bf16*>(a.o) + b * a.so[0] + h * a.so[1];
   constexpr int CH = D / 8;
 #pragma unroll
   for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = i % CH, row = q0 + r0 + r;
+    const int r = i / CH, c = i % CH, row = w0 + r0 + r;
     if (row < a.Sq) {
       *reinterpret_cast<uint4*>(ob + row * a.so[2] + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + off(r0 + r, c * 8));
+          *reinterpret_cast<const uint4*>(Qo + off(r0 + r, c * 8));
     }
   }
 }
@@ -492,9 +530,18 @@ template <int D>
 cudaError_t launch(const FlashArgs& a, int B, cudaStream_t stream) {
   const cudaError_t attr = configure<D>();
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, B * a.Hq);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(a);
+  const dim3 grid((a.Sq + rows<D>() - 1) / rows<D>(), B * a.Hq);
+  flash_fwd_tc_kernel<D><<<grid, threads<D>(), smem_bytes<D>(), stream>>>(a);
   return cudaGetLastError();
+}
+
+// CTAs of the kernel that fit one SM at head dim D
+template <int D>
+cudaError_t occupancy(int* n) {
+  const cudaError_t e = configure<D>();
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, flash_fwd_tc_kernel<D>, threads<D>(),
+                                                       smem_bytes<D>());
 }
 
 // the dispatch rule's layout half: last strides 1, pointers and the
@@ -556,7 +603,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The tensor-core kernel: bf16, the same arguments and checks, and the
-// dispatch rule's layout (D 64 or 128; see the note at the top);
+// dispatch rule's layout (D 64, 128 or 256; see the note at the top);
 // cudaErrorInvalidValue for a call off the rule.
 int flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
                            int B, int Hq, int Hkv, int Sq, int Skv, int D,
@@ -567,21 +614,18 @@ int flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return tc::launch<64>(a, B, s);
   if (D == 128) return tc::launch<128>(a, B, s);
+  if (D == 256) return tc::launch<256>(a, B, s);
   return cudaErrorInvalidValue;
 }
 
-// CTAs of the tensor-core kernel that fit one SM at head dim D (64 or
-// 128), or -1: a diagnostic the smoke run prints.
+// CTAs of the tensor-core kernel that fit one SM at head dim D (64, 128
+// or 256), or -1: a diagnostic the smoke run prints.
 int flash_attention_tc_ctas_per_sm(int D) {
   int n = -1;
   cudaError_t e = cudaErrorInvalidValue;
-  if (D == 64 && tc::configure<64>() == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, tc::flash_fwd_tc_kernel<64>,
-                                                      tc::kThreads, tc::smem_bytes<64>());
-  } else if (D == 128 && tc::configure<128>() == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, tc::flash_fwd_tc_kernel<128>,
-                                                      tc::kThreads, tc::smem_bytes<128>());
-  }
+  if (D == 64) e = tc::occupancy<64>(&n);
+  if (D == 128) e = tc::occupancy<128>(&n);
+  if (D == 256) e = tc::occupancy<256>(&n);
   return e == cudaSuccess ? n : -1;
 }
 

@@ -318,6 +318,32 @@ def whole_heads(x: torch.Tensor, n: int) -> torch.Tensor:
                                           for p in x.placements])
 
 
+def grad_as_placed(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, whose gradient the backward first brings to ``x``'s
+    placements.  A DTensor's gradient may come split where ``x`` is whole
+    (the gradient of a linear layer's input is split along the weight's
+    split dim), and a view of it into heads then fails where the mesh axis
+    is wider than the heads (xLSTM's 4 heads on a 16-wide ``model`` axis).
+    A plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def loop_reckoner():
+    """The dispatch mode on the stack that reckons a run's loops instead of
+    running every trip (the dry run's ``CellCounter``, which counts one
+    trip as many: its ``trips`` method), or ``None``: the model then runs
+    every trip."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        if getattr(mode, "reckons_loops", False):
+            return mode
+    return None
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a DTensor (a tensor of a model mesh)."""
     return isinstance(x, DTensor)

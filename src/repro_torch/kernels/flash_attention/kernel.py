@@ -27,8 +27,8 @@ algebra).  :func:`decode_partials_ref` and
 On the card each call takes one of two kernels, chosen before the launch
 by dtype, shape and layout alone (:func:`uses_tensor_cores`,
 :func:`decode_uses_tensor_cores`): bf16 calls on 16 B aligned rows at head
-dim 64 or 128 (decode: also 256, at most 16 query heads a kv head) run
-the tensor-core kernel on bf16 tiles in shared memory (``wgmma`` for
+dim 64, 128 or 256 (decode: at most 16 query heads a kv head) run the
+tensor-core kernel on bf16 tiles in shared memory (``wgmma`` for
 attention, ``mma.sync`` for decode); every other call runs the scalar f32
 kernel, so f32 inputs keep f32 products.
 
@@ -57,9 +57,9 @@ __all__ = ["DECODE_TC_HEAD_DIMS", "MAX_DECODE_GROUP", "MAX_HEAD_DIM", "NEG_INF",
 
 #: largest head dim the kernel takes (its widest shared-memory tiles)
 MAX_HEAD_DIM = 256
-#: head dims the tensor-core attention kernel is built for (at 256 its
-#: registers spill: that head dim stays on the scalar kernel)
-TC_HEAD_DIMS = (64, 128)
+#: head dims the tensor-core attention kernel is built for (a warpgroup
+#: owns 64 query rows; a CTA is one warpgroup at 64 and 128, two at 256)
+TC_HEAD_DIMS = (64, 128, 256)
 #: head dims the tensor-core decode kernel is built for
 DECODE_TC_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # ``DType`` in the source

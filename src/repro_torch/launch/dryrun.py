@@ -50,6 +50,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -242,7 +243,7 @@ def _auto_microbatches(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
 
 
 # ------------------------------------------------------------ the counter
-_NO_BYTES = {"empty", "empty_strided", "new_empty", "new_empty_strided",
+_NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
              "detach", "alias", "lift_fresh", "wait_tensor", "_local_scalar_dense"}
 
 
@@ -268,17 +269,50 @@ class OpBudgetExceeded(RuntimeError):
     """A cell dispatched more local ops than its budget allows."""
 
 
-#: local ops one sLSTM time step dispatches (forward; a train step runs it
-#: about 4 times: the forward, the recomputation, and a backward of two)
-_SLSTM_STEP_OPS = 30
+class _TripsIn(torch.autograd.Function):
+    """The entry of a reckoned loop (:meth:`CellCounter.trips`): views of
+    the shared inputs and the carried values.  Its backward runs once the
+    trips' backward is done.  There it ends the counter's scaling, counts
+    the accumulations of the trips' gradients of each shared input (the
+    trips add them one by one, ``n - 1`` additions, while the earlier
+    trips' tensors are still held), then drops the other trips' copies of
+    what autograd held for them."""
+
+    @staticmethod
+    def forward(ctx, counter, n, n_shared, *xs):
+        ctx.counter, ctx.n, ctx.n_shared = counter, n, n_shared
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counter = ctx.counter
+        counter._scale = counter._bwd_scales.pop()
+        with counter.scaled(ctx.n - 1):  # the earlier trips' copies still live
+            for g in grads[:ctx.n_shared]:
+                if g is not None:  # the sum so far plus one trip's gradient
+                    g + torch.empty_like(g)
+        counter._drop_held()
+        return (None, None, None, *grads)
 
 
-def _slstm_ops(cfg: ModelConfig, shape: ShapeConfig) -> int:
-    """About how many local ops the sLSTM layers' time loops dispatch in
-    one run of ``shape`` (their steps are sequential: one a token)."""
-    n = sum(1 for i in range(cfg.num_layers) if cfg.layer_kind(i)[0] == "slstm")
-    steps = shape.seq_len if shape.mode != "decode" else 1
-    return n * steps * _SLSTM_STEP_OPS * (4 if shape.mode == "train" else 1)
+class _TripsOut(torch.autograd.Function):
+    """The exit of a reckoned loop: views of the last trip's carried
+    values, which autograd keeps for the backward as it keeps every
+    trip's.  Its backward starts the counter's scaling for the trips'
+    backward."""
+
+    @staticmethod
+    def forward(ctx, counter, n, *carried):
+        ctx.counter, ctx.n = counter, n
+        ctx.save_for_backward(*carried)
+        return tuple(t.view_as(t) for t in carried)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counter = ctx.counter
+        counter._bwd_scales.append(counter._scale)
+        counter._scale = ctx.n
+        return (None, None, *grads)
 
 
 class CellCounter(RA.CollectiveCounter):
@@ -289,7 +323,15 @@ class CellCounter(RA.CollectiveCounter):
     of the global shapes (the first time it meets the op on those
     placements); those runs pass through the mode too and are not counted:
     the step's own tensors are ``meta`` ones, so an op on fake tensors is
-    DTensor's."""
+    DTensor's.
+
+    The model hands a sequential loop's trips to :meth:`trips`
+    (``distributed.sharding.loop_reckoner`` finds the counter), which runs
+    one trip and counts it as all of them: the sLSTM walks 4,096 or 32,768
+    tokens one at a time, millions of local ops.  With ``reckons_loops``
+    false the model runs every trip under the counter."""
+
+    reckons_loops = True
 
     def __init__(self, max_ops: int = 0):
         super().__init__()
@@ -309,6 +351,87 @@ class CellCounter(RA.CollectiveCounter):
         self.live = 0
         self.peak = 0
         self._seen = set()
+        self._nbytes_of = {}
+        #: what each counted op counts as: a reckoned loop's trips
+        self._scale = 1
+        self._bwd_scales = []
+        #: storages made by the trip being reckoned; the bytes of the other
+        #: trips' copies of a loop's list, by storage, and of what autograd
+        #: holds for them, a loop each (see :meth:`trips`)
+        self._trip_keys = None
+        self._extra = {}
+        self._held = []
+
+    @contextlib.contextmanager
+    def scaled(self, n: int):
+        """Count each op inside as ``n`` ops (0: not at all)."""
+        prev, self._scale = self._scale, n
+        try:
+            yield
+        finally:
+            self._scale = prev
+
+    def trips(self, n: int, body, shared, carried):
+        """Reckon ``n`` trips of a loop by running one: ``for _ in
+        range(n): carried = body(*shared, *carried)``, where the caller
+        keeps every trip's ``carried[0]`` in a list (the returned one ``n``
+        times over; see :meth:`stacked`).  Returns the last trip's
+        ``carried``.
+
+        The trip's FLOPs, bytes and collectives count ``n`` times, in its
+        backward too (:class:`_TripsIn`, :class:`_TripsOut`).  Memory: what
+        the trip leaves alive counts once a trip, as each trip's own copy
+        would: the tensors autograd keeps for the backward, the carried
+        values it keeps with them, and the list; those copies count until
+        the trips' backward is done (at each trip's backward the earlier
+        trips' tensors are still held).  Without autograd (no gradients,
+        or a checkpointed layer's first forward) a carried value counts
+        once, but for the list's.  The caller reckons the
+        loop's first and last trips by running them (their inputs and
+        gradients then have the placements every other trip's have)."""
+        k = len(shared)
+        ins = _TripsIn.apply(self, n, k, *shared, *carried)
+        prev, self._trip_keys = self._trip_keys, set()
+        try:
+            with self.scaled(n):
+                out = body(*ins[:k], *ins[k:])
+        finally:
+            keys, self._trip_keys = self._trip_keys, prev
+        self._hold(n, keys, out)
+        return _TripsOut.apply(self, n, *out)
+
+    def stacked(self, t) -> None:
+        """The list of ``t``'s trips (:meth:`trips`) is stacked and gone:
+        its copies stay only where autograd holds them."""
+        self.live -= self._extra.pop(self._key(t), 0)
+
+    @staticmethod
+    def _key(t) -> int:
+        return _local(t).untyped_storage()._cdata
+
+    def _hold(self, n: int, keys, carried) -> None:
+        """Count the trip's live storages ``n`` times (see :meth:`trips`).
+        Where autograd holds the trip's tensors, the other trips' copies
+        count until the trips' backward is done (the loops' backwards run
+        last loop first); else only the list's copies of ``carried[0]``
+        count, until it is stacked."""
+        carried_keys = {self._key(t) for t in carried}
+        alive = [k for k in keys if k in self._seen]
+        listed = self._key(carried[0])
+        if any(k not in carried_keys for k in alive):
+            held = sum((n - 1) * self._nbytes_of[k] for k in alive)
+            self._held.append(held)
+            self.live += held
+        elif listed in alive:
+            self._extra[listed] = (n - 1) * self._nbytes_of[listed]
+            self.live += self._extra[listed]
+        self.peak = max(self.peak, self.live)
+
+    def _drop_held(self) -> None:
+        """The other trips' copies of what autograd held for the last loop
+        are gone."""
+        if self._held:
+            self.live -= self._held.pop()
 
     def _track(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -317,13 +440,17 @@ class CellCounter(RA.CollectiveCounter):
             return
         n = st.nbytes()
         self._seen.add(key)
+        self._nbytes_of[key] = n
+        if self._trip_keys is not None:
+            self._trip_keys.add(key)
         self.live += n
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, key, n)
 
     def _free(self, key, n) -> None:
         self._seen.discard(key)
-        self.live -= n
+        self._nbytes_of.pop(key, None)
+        self.live -= n + self._extra.pop(key, 0)
 
     def adopt(self, tensors) -> int:
         """Count ``tensors`` (local ones) as already live, not as the step's
@@ -352,7 +479,14 @@ class CellCounter(RA.CollectiveCounter):
         self.ops += 1
         if self.max_ops and self.ops > self.max_ops:
             raise OpBudgetExceeded(f"more than {self.max_ops} local ops in one run")
+        scale = self._scale
+        wire = self.stats if scale != 1 else None
         out = super().local_op(func, args, kwargs)
+        if wire is not None:  # a collective of a reckoned trip: every trip's
+            for kind, n in wire.bytes_by_kind.items():
+                self.bytes_by_kind[kind] += (scale - 1) * (self.bytes_by_kind[kind] - n)
+                self.count_by_kind[kind] += (scale - 1) * (
+                    self.count_by_kind[kind] - wire.count_by_kind[kind])
         packet = func._overloadpacket
         name = packet._qualified_op_name.partition("::")[2]
         if RA.collective_kind(func) is not None or name in _NO_BYTES:
@@ -360,10 +494,10 @@ class CellCounter(RA.CollectiveCounter):
         outs = _tensors(out)
         f = self._flops.get(packet)
         if f is not None:
-            self.flops += int(f(*args, **kwargs, out_val=out))
+            self.flops += scale * int(f(*args, **kwargs, out_val=out))
         if not func.is_view:
-            self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
-            self.bytes += sum(_nbytes(t) for t in outs)
+            self.bytes += scale * sum(_nbytes(t) for t in _tensors((args, kwargs)))
+            self.bytes += scale * sum(_nbytes(t) for t in outs)
         for t in outs:
             self._track(t)
         return out
@@ -426,13 +560,10 @@ def lower_cell(
     while the peak exceeds ``HBM_BUDGET``).  Long prefill attends in kv
     blocks of ``PREFILL_BLOCK_K``.  ``max_ops`` (0: none) caps the local
     ops one run may dispatch: a cell past it fails with
-    :class:`OpBudgetExceeded` (the sLSTM's token-by-token loop at 32k
-    tokens dispatches millions).  ``info["fallbacks"]`` counts the ops
+    :class:`OpBudgetExceeded`.  The sLSTM's time loop is reckoned as one
+    step counted once a token (:meth:`CellCounter.trips`).
+    ``info["fallbacks"]`` counts the ops
     :class:`~repro_torch.distributed.sharding.MeshOps` repaired, by op."""
-    if max_ops and _slstm_ops(cfg, shape) > max_ops:
-        raise OpBudgetExceeded(
-            f"the sLSTM's token-by-token loop alone dispatches about "
-            f"{_slstm_ops(cfg, shape)} local ops, more than {max_ops}")
     rules = pick_rules(mesh, shape)
     attn_block_k = (PREFILL_BLOCK_K
                     if shape.mode == "prefill" and shape.seq_len > 2 * PREFILL_BLOCK_K

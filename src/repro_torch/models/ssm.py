@@ -26,8 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from ..distributed.sharding import (ShardingCtx, fsdp_gather, is_dtensor,
-                                    on_local_shards, whole_heads)
+from ..distributed.sharding import (ShardingCtx, fsdp_gather, grad_as_placed,
+                                    is_dtensor, loop_reckoner, on_local_shards,
+                                    whole_heads)
 from . import common as C
 
 __all__ = ["chunked_linear_rnn", "linear_rnn_step", "SSD", "ssd_block",
@@ -253,7 +254,8 @@ def _headwise_rms(x: torch.Tensor, scale: torch.Tensor, H: int) -> torch.Tensor:
     xh = whole_heads(x, H).reshape(B, S, H, di // H).float()
     var = (xh * xh).mean(dim=-1, keepdim=True)
     xh = xh * torch.rsqrt(var + 1e-6)
-    return (xh.reshape(B, S, di) * scale).to(x.dtype)
+    # the gradient comes split along di: whole heads before it is viewed
+    return (grad_as_placed(xh.reshape(B, S, di)) * scale).to(x.dtype)
 
 
 def mlstm_block(params: MLSTM, x: torch.Tensor, cfg: ModelConfig,
@@ -326,11 +328,26 @@ def slstm_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _slstm_step(gx: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
+                c: torch.Tensor, H: int, P: int):
+    """One time step of the sLSTM (``gx [B, 4di]``, this token's input
+    gates): the new ``(h, c)``."""
+    rec = torch.einsum("bhp,hpq->bhq", h, r.to(h.dtype))  # [B,H,4P]
+    g = gx.reshape(gx.shape[0], H, 4 * P) + rec
+    i_g, f_g, z_g, o_g = g.chunk(4, dim=-1)
+    c = torch.sigmoid(f_g + 1.0) * c + torch.sigmoid(i_g) * torch.tanh(z_g)
+    h = torch.sigmoid(o_g) * torch.tanh(c)
+    return h, c
+
+
 def slstm_block(params: SLSTM, x: torch.Tensor, cfg: ModelConfig,
                 ctx: ShardingCtx, state: Optional[dict] = None):
     """Sequential scalar LSTM with per-head recurrence, one step a token
     (a handful of launches a step on the card); ``state`` (decode)
-    ``{"h": [B,H,P], "c": [B,H,P]}`` f32."""
+    ``{"h": [B,H,P], "c": [B,H,P]}`` f32.  Under the dry run's counter
+    (``loop_reckoner``) the steps between the first and the last are
+    reckoned as one step counted S - 2 times; every other run walks every
+    token."""
     B, S, d = x.shape
     di, H = cfg.d_inner, cfg.num_heads
     P = di // H
@@ -342,15 +359,29 @@ def slstm_block(params: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     else:
         h, c = state["h"], state["c"]
     r = fsdp_gather(params.r_gates)
-    ys = []
-    for t in range(S):
-        rec = torch.einsum("bhp,hpq->bhq", h, r.to(h.dtype))  # [B,H,4P]
-        g = gates_x[:, t].reshape(B, H, 4 * P) + rec
-        i_g, f_g, z_g, o_g = g.chunk(4, dim=-1)
-        c = torch.sigmoid(f_g + 1.0) * c + torch.sigmoid(i_g) * torch.tanh(z_g)
-        h = torch.sigmoid(o_g) * torch.tanh(c)
-        ys.append(h)
-    y = torch.stack(ys, dim=1).reshape(B, S, di).to(x.dtype)
+    counter = loop_reckoner()
+    if counter is None or S < 3:
+        ys = []
+        for t in range(S):
+            h, c = _slstm_step(gates_x[:, t], r, h, c, H, P)
+            ys.append(h)
+        y = torch.stack(ys, dim=1)
+    else:
+        # the first and last steps as they run, the S - 2 between as one
+        # step counted S - 2 times, whose h stands for theirs in ys (a view
+        # each: each entry's gradient is placed on its own, as each step's)
+        h, c = _slstm_step(gates_x[:, 0], r, h, c, H, P)
+        ys = [h]
+        h, c = counter.trips(
+            S - 2, lambda gx, r_, h_, c_: _slstm_step(gx[:, 1], r_, h_, c_, H, P),
+            shared=(gates_x, r), carried=(h, c))
+        ys += [h.view_as(h) for _ in range(S - 2)]
+        h, c = _slstm_step(gates_x[:, S - 1], r, h, c, H, P)
+        y = torch.stack(ys + [h], dim=1)
+        counter.stacked(ys[1])
+    # the output projection's gradient comes split along d_inner: whole
+    # heads again before the backward views it as [B, S, H, P]
+    y = grad_as_placed(y.reshape(B, S, di)).to(x.dtype)
     return C.linear(params.out_proj, y), {"h": h, "c": c}
 
 

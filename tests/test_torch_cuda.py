@@ -674,12 +674,15 @@ def test_flash_attention_kernel_matches_plain(dev, B, Hq, Hkv, Sq, Skv, D,
     (1, 8, 1, 100, 300, 64, True), (2, 16, 2, 130, 130, 128, True),
     (2, 16, 2, 130, 200, 128, False), (1, 4, 1, 77, 333, 256, True),
     (1, 4, 2, 200, 70, 256, False), (2, 8, 1, 64, 64, 128, False),
-    (1, 2, 1, 1, 65, 128, True), (1, 16, 2, 700, 700, 128, True)])
+    (1, 2, 1, 1, 65, 128, True), (1, 16, 2, 700, 700, 128, True),
+    (1, 8, 1, 768, 768, 256, True), (2, 16, 16, 1, 300, 256, True),
+    (1, 16, 16, 100, 333, 256, False), (2, 4, 2, 70, 70, 256, True)])
 def test_flash_attention_tensor_core_path(dev, B, Hq, Hkv, Sq, Skv, D, causal):
     """The bf16 tensor-core kernel: ragged Sq and Skv, queries as the key
-    suffix, GQA 8:1, D 64/128 (and 256, which the rule keeps on the scalar
-    kernel); the model's transposed views and a repeat bitwise the same;
-    only calls on the dispatch rule count."""
+    suffix, GQA 8:1, D 64/128 on one warpgroup a CTA and 256 on two (MQA
+    8:1 at PaliGemma's S=768, MHA at Sq=1 and at Sq < Skv non-causal, a
+    ragged tail of 70 keys); the model's transposed views and a repeat
+    bitwise the same; only calls on the dispatch rule count."""
     from repro_torch.kernels.flash_attention import kernel as FK
 
     q, k, v = _flash_inputs(dev, torch.bfloat16, B, Hq, Hkv, Sq, Skv, D, seed=3)

@@ -168,14 +168,16 @@ def _call_tensors(dtype, D, B=2, Hq=4, Hkv=2, S=40):
 
 @pytest.mark.parametrize("dtype,D,expect", [
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 256, False), (torch.bfloat16, 100, False),
+    (torch.bfloat16, 256, True), (torch.bfloat16, 100, False),
     (torch.bfloat16, 16, False), (torch.float32, 128, False),
     (torch.float32, 64, False)])
 def test_dispatch_rule_by_dtype_and_head_dim(dtype, D, expect):
-    """bf16 at head dim 64 or 128 takes the tensor-core kernel; f32 keeps
-    full f32 products on the scalar kernel, as does every other head dim."""
+    """bf16 at head dim 64, 128 or 256 takes the tensor-core kernel; f32
+    keeps full f32 products on the scalar kernel (at 256 too), as does every
+    other head dim."""
     assert K.uses_tensor_cores(*_call_tensors(dtype, D)) is expect
-    assert K.TC_HEAD_DIMS == (64, 128)
+    assert K.TC_HEAD_DIMS == (64, 128, 256)
+    assert not K.uses_tensor_cores(*_call_tensors(torch.float32, 256))
 
 
 def test_dispatch_rule_by_layout():
@@ -193,6 +195,11 @@ def test_dispatch_rule_by_layout():
     pad8 = torch.zeros(2, 2, 40, 136, dtype=torch.bfloat16)[..., :128]  # rows 272 B
     assert K.uses_tensor_cores(q, pad8, v, out)
     assert not K.uses_tensor_cores(q.float(), k, v, out)  # dtypes differ
+    # head dim 256: on the rule as the model hands it over, off it 2 B off
+    q, k, v, out = _call_tensors(torch.bfloat16, 256)
+    assert K.uses_tensor_cores(q, k, v, out)
+    buf = torch.zeros(k.numel() + 1, dtype=torch.bfloat16)
+    assert not K.uses_tensor_cores(q, k, buf[1:].view(k.shape), out)
 
 
 def test_dispatch_leaves_cpu_calls_and_counters_alone():

@@ -216,7 +216,7 @@ line):
             not fail the run) one resident PageRank run of 3 iterations and
             one resident fusion set of 32 queries (max_iters=3) under
             torch.profiler: each kernel's device time as the engine
-            launches it, beside the engine's kernel_s, and the card's busy
+            launches it, beside the engine's exec_s, and the card's busy
             share of the run.
 15. ingest  the main phase's graph written as a binary edge file
             (``write_edge_file``, 8 B an edge) and stream-ingested
@@ -815,14 +815,14 @@ class Smoke:
                               f"bytes_read={i.bytes_read} "
                               f"load_wait_s={i.load_wait_s:.4f} "
                               f"to_device_s={i.to_device_s:.4f} "
-                              f"exec_s={i.exec_s:.4f} kernel_s={i.kernel_s:.5f} "
+                              f"exec_s={i.exec_s:.4f} "
                               f"launches={i.dispatches} "
                               f"padding_ratio={i.padding_ratio:.4f} "
                               f"shards={i.shards_processed}")
                     steady = r.iterations[1:] or r.iterations
                     med = {k: float(np.median([getattr(i, k) for i in steady]))
                            for k in ("time_s", "load_wait_s", "to_device_s",
-                                     "exec_s", "kernel_s", "bytes_read")}
+                                     "exec_s", "bytes_read")}
                     self.report["main"]["runs"][key]["steady_median"] = med
                     print(f"    median over iterations 1..: {json.dumps(med)}")
                     if backend == "cuda":
@@ -894,7 +894,7 @@ class Smoke:
             st = svc.last_sweep_stats
             lat = np.array([r.latency_s for r in res])
             med = {k: float(np.median([getattr(i, k) for i in st]))
-                   for k in ("time_s", "exec_s", "kernel_s", "dispatches",
+                   for k in ("time_s", "exec_s", "dispatches",
                              "batches", "overlap_s", "live_lanes")}
             summary = {
                 "wall_s": wall, "queries_per_s": len(qs) / wall,
@@ -1003,7 +1003,6 @@ class Smoke:
             except Exception as exc:  # a diagnostic: report, do not fail
                 rep, r = {"not measured": repr(exc)}, None
         if r is not None:
-            rep["engine_kernel_s"] = sum(i.kernel_s for i in r.iterations)
             rep["engine_exec_s"] = sum(i.exec_s for i in r.iterations)
             rep["engine_time_s"] = sum(i.time_s for i in r.iterations)
             rep["by_name"] = dict(sorted(rep["by_name"].items(),
@@ -1036,7 +1035,6 @@ class Smoke:
         finally:
             svc.close(close_engine=False)
         if st is not None:
-            rep["sweep_kernel_s"] = sum(i.kernel_s for i in st)
             rep["sweep_exec_s"] = sum(i.exec_s for i in st)
             rep["sweep_time_s"] = sum(i.time_s for i in st)
             rep["by_name"] = dict(sorted(rep["by_name"].items(),

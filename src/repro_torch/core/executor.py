@@ -241,11 +241,25 @@ class ExecResult:
 
 @dataclasses.dataclass
 class ExecStats:
-    """Per-iteration dispatch accounting (reset each iteration)."""
+    """Per-iteration dispatch accounting (reset each iteration).
+
+    ``exec_s`` is the executor's host wall time, in every executor and
+    path: staging the messages, the launches, the wait for the kernels,
+    the copy back and the split into shards.  ``stage_s`` is its share
+    spent staging (the pinned message buffer and its copy to the device),
+    ``copy_back_s`` its share from the accumulator on the device to the
+    shards' rows on the host (the wait for the kernels included, since
+    the copy waits for them).  So ``stage_s + copy_back_s <= exec_s``; the
+    rest is the launches and the bookkeeping.  The numpy oracle stages
+    and copies nothing, and the mesh executor's per-group path copies
+    inside its update (it books no ``copy_back_s``).
+    """
 
     dispatches: int = 0
     shards_executed: int = 0
     exec_s: float = 0.0  # host wall time of the dispatches
+    stage_s: float = 0.0  # of which staging the messages
+    copy_back_s: float = 0.0  # of which the accumulators to the host
     slots: int = 0  # ELL slots dispatched (K per ELL row)
     nnz: int = 0  # of which hold an edge
     #: shard batches flushed (a ragged flush is ONE dispatch per batch, the
@@ -259,19 +273,11 @@ class ExecStats:
     #: wall time a dispatched batch stayed in flight while the host staged
     #: the next one (the double-buffer overlap window)
     overlap_s: float = 0.0
-    #: CUDA event pairs around each update on the card (partials + combine)
-    events: List[tuple] = dataclasses.field(default_factory=list)
     #: mesh executors only: device slot -> shard applications / dispatches
     #: routed to that slot (empty on single-device executors);
     #: sum(device_shards.values()) == shards_executed
     device_shards: Dict[int, int] = dataclasses.field(default_factory=dict)
     device_dispatches: Dict[int, int] = dataclasses.field(default_factory=dict)
-
-    @property
-    def kernel_s(self) -> float:
-        """Device time of the updates; 0.0 off the card.  Read it after
-        the dispatches have finished (collecting an accumulator waits)."""
-        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
     @property
     def padding_ratio(self) -> float:
@@ -280,12 +286,11 @@ class ExecStats:
 
     def reset(self) -> None:
         self.dispatches = self.shards_executed = 0
-        self.exec_s = 0.0
+        self.exec_s = self.stage_s = self.copy_back_s = 0.0
         self.slots = self.nnz = 0
         self.batches = self.ragged_dispatches = self.ragged_lanes = 0
         self.group_lanes = {}
         self.overlap_s = 0.0
-        self.events = []
         self.device_shards = {}
         self.device_dispatches = {}
 
@@ -329,10 +334,26 @@ def _live(groups: Sequence[GroupDispatch]):
     return [(gi, ga) for gi, ga in enumerate(groups) if ga is not None]
 
 
+@contextlib.contextmanager
+def _clock(name: str, stats: Optional["ExecStats"], field: str):
+    """The span ``name``, its seconds added to ``stats.<field>``."""
+    with trace.timed(name) as t:
+        yield
+    if stats is not None:
+        setattr(stats, field, getattr(stats, field) + t.s)
+
+
+def _staged(stats: Optional["ExecStats"], stage: Callable, *args):
+    """``stage(*args)`` under the ``exec.stage`` span, booked in ``stats``."""
+    with _clock("exec.stage", stats, "stage_s"):
+        return stage(*args)
+
+
 class _EllDispatch:
-    """What both executors share for the ELL backends: stage the messages
-    once per ``run`` (lanes: once per group and iteration), time the update
-    on the card, copy the accumulator back once."""
+    """What the executors share for the ELL backends: stage the messages
+    once per ``run`` (lanes: once per group and iteration), launch, copy
+    the accumulator back once; staging and copy back are clocked into
+    ``ExecStats``."""
 
     def __init__(self, backend: str, device, lanes: bool):
         self.backend_name = backend
@@ -342,25 +363,18 @@ class _EllDispatch:
         self._lane_fn = LANE_ELL_BACKENDS.get(backend)
         self._ragged_fn = RAGGED_BACKENDS.get(backend)
 
-    def _stage(self, ell: DeviceEll, msgs: np.ndarray):
+    def _stage(self, ell: DeviceEll, msgs: np.ndarray,
+               stats: Optional[ExecStats]):
         n_pad = ell.num_windows * ell.window
-        if msgs.ndim == 2:
-            return spmv_ops.stage_lanes(msgs, n_pad, self.device)
-        return spmv_ops.stage_messages(msgs, n_pad, self.device)
+        with _clock("exec.stage", stats, "stage_s"):
+            if msgs.ndim == 2:
+                return spmv_ops.stage_lanes(msgs, n_pad, self.device)
+            return spmv_ops.stage_messages(msgs, n_pad, self.device)
 
     def _launch(self, fn: Callable, ells: Sequence[DeviceEll], args,
                 stats: Optional[ExecStats]) -> torch.Tensor:
-        """One dispatch of ``ells``, timed on the card; the accumulator stays
-        on the device."""
-        timed = stats is not None and ells[0].device.type == "cuda"
-        if timed:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        """One dispatch of ``ells``; the accumulator stays on the device."""
         acc = fn(ells, *args)
-        if timed:
-            end.record()
-            stats.events.append((start, end))
         if stats is not None:
             stats.slots += sum(e.idx.numel() for e in ells)
             stats.nnz += sum(e.nnz for e in ells)
@@ -372,10 +386,12 @@ class _EllDispatch:
         lanes = isinstance(staged, spmv_kernel.LaneMessages)
         fn = self._lane_fn if lanes else self._fn
         acc = self._launch(fn, ells, (staged, combine), stats)
-        return spmv_ops.split_rows(ells, acc.cpu().numpy())
+        with _clock("exec.copy_back", stats, "copy_back_s"):
+            return spmv_ops.split_rows(ells, acc.cpu().numpy())
 
-    def _stage_group(self, cache, ell: DeviceEll, msgs: np.ndarray):
-        return _cached(cache, (msgs,), lambda: self._stage(ell, msgs))
+    def _stage_group(self, cache, ell: DeviceEll, msgs: np.ndarray,
+                     stats: Optional[ExecStats]):
+        return _cached(cache, (msgs,), lambda: self._stage(ell, msgs, stats))
 
 
 class PerShardExecutor(_EllDispatch):
@@ -413,7 +429,7 @@ class PerShardExecutor(_EllDispatch):
                 "exec.dispatch", shard=ls.shard_id, backend=self.backend_name
             ):
                 if staged is None and self._fn is not None:
-                    staged = self._stage(ls.ell, msgs)
+                    staged = self._stage(ls.ell, msgs, stats)
                 acc = self._one(ls, msgs, staged, combine, stats)
             if stats is not None:
                 stats.dispatches += 1
@@ -443,7 +459,7 @@ class PerShardExecutor(_EllDispatch):
                 with trace.span("exec.dispatch", shard=ls.shard_id, group=gi,
                                 backend=self.backend_name):
                     lanes = (None if self._fn is None
-                             else self._stage_group(cache, ls.ell, msgs))
+                             else self._stage_group(cache, ls.ell, msgs, stats))
                     acc = self._one(ls, msgs, lanes, combine, stats)
                 if stats is not None:
                     stats.dispatches += 1
@@ -494,9 +510,9 @@ class BatchedEllExecutor(_EllDispatch):
     ) -> Iterator[ExecResult]:
         staged = None
         for buf in self._batches(loaded):
-            if staged is None:
-                staged = self._stage(buf[0].ell, msgs)
             t0 = time.perf_counter()
+            if staged is None:
+                staged = self._stage(buf[0].ell, msgs, stats)
             with trace.span(
                 "exec.dispatch", shards=len(buf), backend=self.backend_name
             ):
@@ -539,7 +555,8 @@ class BatchedEllExecutor(_EllDispatch):
         with trace.span("exec.dispatch", shards=len(buf), groups=len(live),
                         backend=self.backend_name):
             accs_by_group = [
-                self._update(ells, self._stage_group(cache, ells[0], msgs),
+                self._update(ells,
+                             self._stage_group(cache, ells[0], msgs, stats),
                              combine, stats)
                 for _, (msgs, combine) in live]
         if stats is not None:
@@ -570,9 +587,9 @@ class BatchedEllExecutor(_EllDispatch):
             with trace.span("exec.dispatch", shards=len(buf), groups=len(live),
                             backend=self.backend_name, ragged=True):
                 lane_ctx = _cached(cache, ("ragged", *msgs_live), lambda: (
-                    spmv_ops.ragged_stage_lanes(
-                        msgs_live, [ga[1] for _, ga in live],
-                        ells[0].num_windows * ells[0].window, self.device)))
+                    _staged(stats, spmv_ops.ragged_stage_lanes,
+                            msgs_live, [ga[1] for _, ga in live],
+                            ells[0].num_windows * ells[0].window, self.device)))
                 acc = self._launch(self._ragged_fn, ells, (lane_ctx,), stats)
                 pending = _HostCopy(acc)
             if stats is not None:
@@ -593,8 +610,9 @@ class BatchedEllExecutor(_EllDispatch):
                 stats.overlap_s += time.perf_counter() - t_launch
             t0 = time.perf_counter()
             ells = [ls.ell for ls in buf]
-            accs_by_group = spmv_ops.ragged_collect(ells, pending.wait(),
-                                                    lane_ctx["slices"])
+            with _clock("exec.copy_back", stats, "copy_back_s"):
+                accs_by_group = spmv_ops.ragged_collect(ells, pending.wait(),
+                                                        lane_ctx["slices"])
             if stats is not None:
                 stats.exec_s += time.perf_counter() - t0
             for (gi, _), accs in zip(live, accs_by_group):
@@ -729,16 +747,20 @@ class MeshLaneExecutor(_EllDispatch):
                     ells = [ls.ell for ls in buf]
                     dev = self.mesh.devices.flat[d]
                     if dev not in staged:
-                        staged[dev] = spmv_ops.stage_messages(
-                            msgs, ells[0].num_windows * ells[0].window, dev)
+                        staged[dev] = _staged(
+                            stats, spmv_ops.stage_messages, msgs,
+                            ells[0].num_windows * ells[0].window, dev)
                     with _on(dev):
                         acc = self._launch(self._fn, ells,
                                            (staged[dev], combine), stats)
                         out.append((buf, _HostCopy(acc)))
-                results = [(buf, accs if isinstance(accs, list) else
-                            spmv_ops.split_rows([ls.ell for ls in buf],
-                                                accs.wait()))
-                           for buf, accs in out]
+                if self._fn is None:
+                    results = out
+                else:
+                    with _clock("exec.copy_back", stats, "copy_back_s"):
+                        results = [(buf, spmv_ops.split_rows(
+                            [ls.ell for ls in buf], accs.wait()))
+                            for buf, accs in out]
             if stats is not None:
                 stats.dispatches += 1
                 stats.exec_s += time.perf_counter() - t0
@@ -789,7 +811,8 @@ class MeshLaneExecutor(_EllDispatch):
                 ells = [ls.ell for b in bufs for ls in b]
                 n_pad = ells[0].num_windows * ells[0].window
                 lanes = [_cached(cache, ("mesh", msgs), lambda m=msgs: (
-                    spmv_ops.mesh_stage_lanes(m, n_pad, self.mesh)))
+                    _staged(stats, spmv_ops.mesh_stage_lanes, m, n_pad,
+                            self.mesh)))
                     for _, (msgs, _) in live]
                 accs_by_group, _ = self._launch(
                     lambda _ells: spmv_ops.ell_update_lanes_mesh_multi(
@@ -825,7 +848,9 @@ class MeshLaneExecutor(_EllDispatch):
                 else:
                     ells = [ls.ell for b in bufs for ls in b]
                     lane_ctx = _cached(cache, ("mesh-ragged", *msgs_live),
-                                       lambda: spmv_ops.mesh_ragged_stage_lanes(
+                                       lambda: _staged(
+                                           stats,
+                                           spmv_ops.mesh_ragged_stage_lanes,
                                            msgs_live, [ga[1] for _, ga in live],
                                            ells[0].num_windows * ells[0].window,
                                            self.mesh))
@@ -855,8 +880,10 @@ class MeshLaneExecutor(_EllDispatch):
             if kind == "numpy":
                 results = payload
             else:
-                payload["acc"] = {d: c.wait() for d, c in payload["acc"].items()}
-                accs_by_group, _ = spmv_ops.mesh_ragged_collect(payload)
+                with _clock("exec.copy_back", stats, "copy_back_s"):
+                    payload["acc"] = {d: c.wait()
+                                      for d, c in payload["acc"].items()}
+                    accs_by_group, _ = spmv_ops.mesh_ragged_collect(payload)
                 results = self._unpack(live, bufs, accs_by_group)
             if stats is not None:
                 stats.exec_s += time.perf_counter() - t0

@@ -267,14 +267,17 @@ class ShardPipeline:
         try:
             top_up()
             for i in range(len(shard_ids)):
-                fut = pending.pop(i)
-                t0 = time.perf_counter()
-                with trace.span("shard.wait", shard=shard_ids[i]):
-                    ls = fut.result()  # re-raises ShardLoadError
-                ls.wait_s = time.perf_counter() - t0
-                top_up()  # keep the window full while we still hold the shard
-                ls = self._to_device(ls)
-                self._account(ls, stats)
+                # the hand-off of one shard: the wait, the refill of the
+                # window, the move to the device and the accounting
+                with trace.span("shard.next", shard=shard_ids[i]):
+                    fut = pending.pop(i)
+                    t0 = time.perf_counter()
+                    with trace.span("shard.wait", shard=shard_ids[i]):
+                        ls = fut.result()  # re-raises ShardLoadError
+                    ls.wait_s = time.perf_counter() - t0
+                    top_up()  # keep the window full while we still hold the shard
+                    ls = self._to_device(ls)
+                    self._account(ls, stats)
                 yield ls
         finally:
             # Abnormal exit: drain the prefetch window, so the next sweep

@@ -65,6 +65,17 @@ __all__ = ["IterStats", "RunResult", "VSWEngine", "BACKENDS"]
 
 @dataclasses.dataclass
 class IterStats:
+    """One engine iteration.  ``time_s`` is its wall time, which the
+    clocked steps below split as ``exec_s + load_wait_s + to_device_s +
+    plan_s + pre_s + apply_s + activity_s`` plus what no step names (the
+    bookkeeping, the generators' own overhead).  ``exec_s`` is the
+    executor's whole share in every executor: staging the messages, the
+    launches, the wait, the copy back and the split; ``stage_s`` and
+    ``copy_back_s`` are parts of it (:class:`~repro_torch.core.executor.
+    ExecStats`).  Each step is also a span of :mod:`repro_torch.obs.trace`
+    (``sweep.plan``, ``vsw.pre``, ``vsw.apply``, ``vsw.activity``,
+    ``exec.stage``, ``exec.copy_back``)."""
+
     iteration: int
     time_s: float
     shards_processed: int
@@ -80,7 +91,12 @@ class IterStats:
     load_overlap_s: float = 0.0  # load work hidden behind compute
     to_device_s: float = 0.0  # consumer-side host->device shard copies
     exec_s: float = 0.0  # backend dispatch wall time
-    kernel_s: float = 0.0  # device time of the updates (CUDA events)
+    stage_s: float = 0.0  # of exec_s: messages staged on the device
+    copy_back_s: float = 0.0  # of exec_s: accumulators to the host
+    plan_s: float = 0.0  # the scheduler's plan (ShardPlan.plan_time_s)
+    pre_s: float = 0.0  # program.pre and the carried-over copy
+    apply_s: float = 0.0  # program.apply and its writes, all shards
+    activity_s: float = 0.0  # program.is_active and the active ids
     dispatches: int = 0  # kernel dispatches (< processed when batching)
     padding_ratio: float = 0.0  # of the dispatched ELL slots
     prefetch_depth: int = 0
@@ -393,9 +409,10 @@ class VSWEngine:
 
     def _run(self, program: VertexProgram, *, max_iters: int) -> RunResult:
         meta = self.meta
-        src_vals, active_mask = program.init(meta)
-        src_vals = src_vals.astype(np.float32)
-        active_ids = np.flatnonzero(active_mask).astype(np.int64)
+        with trace.span("vsw.init"):
+            src_vals, active_mask = program.init(meta)
+            src_vals = src_vals.astype(np.float32)
+            active_ids = np.flatnonzero(active_mask).astype(np.int64)
         stats: List[IterStats] = []
         converged = False
         pstats = PipelineStats()
@@ -411,45 +428,49 @@ class VSWEngine:
 
             with trace.span("vsw.iter", iteration=it) as it_sp:
                 plan = self.scheduler.plan(active_ids)
-                msgs = program.pre(src_vals, meta.out_deg).astype(np.float32)
-                dst_vals = src_vals.copy()  # carried over for skipped shards
+                with trace.timed("vsw.pre") as pre:
+                    msgs = program.pre(src_vals, meta.out_deg).astype(np.float32)
+                    dst_vals = src_vals.copy()  # carried over for skipped shards
 
+                apply_s = 0.0
                 loaded = self.pipeline.iter_shards(plan.shards, stats=pstats)
                 try:
                     for res in self.executor.run(
                         loaded, msgs, program.combine, xstats
                     ):
-                        new = program.apply(
-                            np.asarray(res.acc, dtype=src_vals.dtype),
-                            src_vals[res.v0: res.v1],
-                            meta,
-                            res.v0,
-                        )
-                        dst_vals[res.v0: res.v1] = new
+                        with trace.timed("vsw.apply", shard=res.shard_id) as ap:
+                            new = program.apply(
+                                np.asarray(res.acc, dtype=src_vals.dtype),
+                                src_vals[res.v0: res.v1],
+                                meta,
+                                res.v0,
+                            )
+                            dst_vals[res.v0: res.v1] = new
+                        apply_s += ap.s
                 finally:
                     # Deterministic drain: on a failure the prefetch window
                     # is cancelled+awaited NOW, not at GC.
                     loaded.close()
                 it_sp.set(shards=plan.num_planned, skipped=plan.num_skipped)
 
-            new_active = program.is_active(dst_vals, src_vals)
-            active_ids = np.flatnonzero(new_active).astype(np.int64)
+            with trace.timed("vsw.activity") as act:
+                new_active = program.is_active(dst_vals, src_vals)
+                active_ids = np.flatnonzero(new_active).astype(np.int64)
             src_vals = dst_vals
-            dio = self.store.io - io0
 
-            dev_shards, dev_disp, dev_bytes = plan.device_stats(
-                dio.bytes_read, xstats.device_dispatches)
-            stats.append(
-                IterStats(
+            with trace.span("vsw.stats"):
+                dio = self.store.io - io0
+                dev_shards, dev_disp, dev_bytes = plan.device_stats(
+                    dio.bytes_read, xstats.device_dispatches)
+                cache = self.cache.stats if self.cache else None
+                stats.append(IterStats(
                     iteration=it,
                     time_s=time.perf_counter() - t0,
                     shards_processed=plan.num_planned,
                     shards_skipped=plan.num_skipped,
                     bytes_read=dio.bytes_read,
-                    cache_hits=(self.cache.stats.hits - cache_h0) if self.cache else 0,
-                    cache_misses=(self.cache.stats.misses - cache_m0)
-                    if self.cache
-                    else 0,
+                    cache_hits=cache.hits - cache_h0 if cache else 0,
+                    cache_misses=cache.misses - cache_m0 if cache else 0,
                     active_count=len(active_ids),
                     active_ratio=len(active_ids) / max(meta.num_vertices, 1),
                     selective_on=plan.selective_on,
@@ -458,15 +479,19 @@ class VSWEngine:
                     load_overlap_s=pstats.overlap_s,
                     to_device_s=pstats.to_device_s,
                     exec_s=xstats.exec_s,
-                    kernel_s=xstats.kernel_s,
+                    stage_s=xstats.stage_s,
+                    copy_back_s=xstats.copy_back_s,
+                    plan_s=plan.plan_time_s,
+                    pre_s=pre.s,
+                    apply_s=apply_s,
+                    activity_s=act.s,
                     dispatches=xstats.dispatches,
                     padding_ratio=xstats.padding_ratio,
                     prefetch_depth=self.pipeline.depth,
                     device_shards=dev_shards,
                     device_dispatches=dev_disp,
                     device_bytes=dev_bytes,
-                )
-            )
+                ))
             if len(active_ids) == 0:
                 converged = True
                 break

@@ -603,7 +603,6 @@ def _ingest_sweep_iter(reg: MetricsRegistry, s: Any, prefix: Optional[str]) -> N
             "batches",
             "ragged_dispatches",
             "overlap_s",
-            "kernel_s",
         ),
     )
     reg.histogram(f"{p}.time_s").record(s.time_s)

@@ -12,13 +12,21 @@ return after one global read.
 
 Span names used by the engine::
 
-    vsw.run / vsw.iter / sweep.plan / bloom.build
-    shard.load / shard.wait / shard.decode / shard.to_device
-    store.read / store.write / cache.get / cache.put / exec.dispatch
+    vsw.run / vsw.init / vsw.iter / vsw.pre / vsw.apply / vsw.activity /
+    vsw.stats / sweep.plan / bloom.build
+    shard.load / shard.next / shard.wait / shard.decode / shard.to_device
+    store.read / store.write / cache.get / cache.put
+    exec.dispatch / exec.stage / exec.copy_back
     sweep.iter / batch.form / service.admit / service.fusion_set /
     service.retire
 
 and instant events ``lane.retire`` and ``service.cache_hit``.
+
+An engine iteration nests as ``vsw.run > vsw.iter > {sweep.plan, vsw.pre,
+shard.next > shard.wait, exec.stage, exec.dispatch > exec.copy_back,
+vsw.apply}``, then ``vsw.run > {vsw.activity, vsw.stats}``; ``vsw.init``
+opens the run.  The steps that ``IterStats`` counts are clocked with
+:func:`timed`, so their seconds are there with tracing off too.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 __all__ = ["NULL_SPAN", "Span", "Tracer", "active", "counter",
            "dropped_events", "install", "instant", "publish_drops", "span",
-           "tracing", "uninstall"]
+           "timed", "tracing", "uninstall"]
 
 
 class _NullSpan:
@@ -66,6 +74,32 @@ def span(name: str, **attrs: Any) -> Any:
     if t is None:
         return NULL_SPAN
     return t.span(name, **attrs)
+
+
+class Timed:
+    """A :func:`span` that also clocks its block; see :func:`timed`."""
+
+    __slots__ = ("_span", "_t0", "s")
+
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self._span = span(name, **attrs)
+        self.s = 0.0
+
+    def __enter__(self) -> "Timed":
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        self.s = time.perf_counter() - self._t0
+        return self._span.__exit__(*exc)
+
+
+def timed(name: str, **attrs: Any) -> Timed:
+    """:func:`span` that also clocks its block, tracing on or off:
+    ``with timed("vsw.pre") as t: ...`` leaves the block's wall seconds in
+    ``t.s`` (``perf_counter``), for the stats that count the step."""
+    return Timed(name, attrs)
 
 
 def counter(name: str, value: float, **attrs: Any) -> None:

@@ -98,8 +98,6 @@ class SweepIterStats:
     load_total_s: float = 0.0
     load_wait_s: float = 0.0
     exec_s: float = 0.0
-    # device time of the updates (CUDA events; 0.0 off the card)
-    kernel_s: float = 0.0
     # program groups live this iteration (1 for plain lane sweeps)
     groups: int = 1
     # kernel dispatches and shard batches this iteration.  Ragged sweeps
@@ -488,7 +486,6 @@ class FusedSweep:
                         load_total_s=pstats.load_total_s,
                         load_wait_s=pstats.wait_s,
                         exec_s=xstats.exec_s,
-                        kernel_s=xstats.kernel_s,
                         groups=n_groups_live,
                         dispatches=xstats.dispatches,
                         batches=xstats.batches,

@@ -196,7 +196,7 @@ def test_ragged_sweep_bitwise_vs_multi(tmp_path, backend, batch_shards,
     assert sum(s.dispatches for s in stats_r) > 0
     for s in stats_r:
         assert s.dispatches == s.batches == s.ragged_dispatches, s
-        assert s.overlap_s >= 0.0 and s.kernel_s == 0.0  # no card here
+        assert s.overlap_s >= 0.0
     assert sum(s.dispatches for s in stats_m) > \
         sum(s.dispatches for s in stats_r)
     assert all(s.ragged_dispatches == 0 for s in stats_m)

@@ -168,7 +168,7 @@ def test_iteration_stats_of_ell_backend(port_store):
     it = r.iterations[0]
     assert it.dispatches == 3 and it.shards_processed == 6
     assert 0.0 < it.padding_ratio < 1.0
-    assert it.kernel_s == 0.0  # device time is measured on the card only
+    assert 0.0 < it.stage_s + it.copy_back_s <= it.exec_s
     assert it.exec_s > 0.0 and it.time_s >= it.exec_s
 
 

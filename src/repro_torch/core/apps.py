@@ -14,6 +14,13 @@ for SSSP/WCC).  We factor the per-edge message into an O(|V|) elementwise
 is hoisted out of the edge loop — same math as Alg. 2 line 3, one divide per
 vertex instead of per edge), so the per-shard hot loop is a pure
 gather+combine that the device kernels implement.
+
+Each built-in program also carries device forms of ``pre`` and ``apply``
+(``pre_device``, ``apply_device``): the same float32 operations on tensors,
+writing into buffers the engine owns, so an engine on an ELL backend keeps
+its vertex arrays on the device.  They are bitwise the numpy forms: the
+same division by ``float32(max(out_deg, 1))``, and a multiply then an add
+as two rounded operations (two launches, never one fused multiply-add).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .sharding import GraphMeta
 
@@ -44,6 +52,15 @@ class VertexProgram:
                interval's first global vertex id, for index-aware apps).
       init:    meta -> (initial values [|V|], initial active mask [|V|]).
       is_active: (new, old) -> bool mask; the paper uses exact inequality.
+               With device forms it must take tensors too (the default
+               does).
+      pre_device:   (src [|V|], deg [|V|], out [|V|]) -> None: ``pre`` on
+               tensors, written into ``out``; ``deg`` is
+               ``float32(max(out_deg, 1))`` on the device.
+      apply_device: (acc, old, out, meta, v0) -> None: ``apply`` on tensors,
+               written into ``out`` (the interval of the destination array).
+    Each device form is bitwise its numpy form; a program without them runs
+    on the host.
     """
 
     name: str
@@ -55,10 +72,34 @@ class VertexProgram:
         lambda new, old: new != old
     )
     dtype: type = np.float32
+    pre_device: Optional[Callable[..., None]] = None
+    apply_device: Optional[Callable[..., None]] = None
 
     @property
     def identity(self) -> float:
         return COMBINE_IDENTITY[self.combine]
+
+    @property
+    def has_device_forms(self) -> bool:
+        return self.pre_device is not None and self.apply_device is not None
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as numpy rounds a Python scalar against a
+    float32 array; exact in any wider arithmetic a tensor op may use."""
+    return float(np.float32(x))
+
+
+def _divide_by_degree(src, deg, out) -> None:
+    torch.div(src, deg, out=out)
+
+
+def _add_one(src, deg, out) -> None:
+    torch.add(src, 1.0, out=out)
+
+
+def _min_with_old(acc, old, out, meta, v0=0) -> None:
+    torch.minimum(acc, old, out=out)
 
 
 def pagerank(damping: float = 0.85) -> VertexProgram:
@@ -75,7 +116,15 @@ def pagerank(damping: float = 0.85) -> VertexProgram:
         vals = np.full(meta.num_vertices, 1.0 / meta.num_vertices, dtype=np.float32)
         return vals, np.ones(meta.num_vertices, dtype=bool)
 
-    return VertexProgram("pagerank", "sum", pre, apply, init)
+    scale = _f32(damping)
+
+    def apply_device(acc, old, out, meta: GraphMeta, v0: int = 0) -> None:
+        torch.mul(acc, scale, out=out)
+        out.add_(_f32((1.0 - damping) / meta.num_vertices))
+
+    return VertexProgram("pagerank", "sum", pre, apply, init,
+                         pre_device=_divide_by_degree,
+                         apply_device=apply_device)
 
 
 def sssp(source: int = 0) -> VertexProgram:
@@ -94,7 +143,8 @@ def sssp(source: int = 0) -> VertexProgram:
         active[source] = True
         return vals, active
 
-    return VertexProgram(f"sssp", "min", pre, apply, init)
+    return VertexProgram("sssp", "min", pre, apply, init, pre_device=_add_one,
+                         apply_device=_min_with_old)
 
 
 def wcc() -> VertexProgram:
@@ -114,7 +164,11 @@ def wcc() -> VertexProgram:
         vals = np.arange(meta.num_vertices, dtype=np.float32)
         return vals, np.ones(meta.num_vertices, dtype=bool)
 
-    return VertexProgram("wcc", "min", pre, apply, init)
+    def pre_device(src, deg, out) -> None:
+        out.copy_(src)
+
+    return VertexProgram("wcc", "min", pre, apply, init, pre_device=pre_device,
+                         apply_device=_min_with_old)
 
 
 def bfs(source: int = 0) -> VertexProgram:
@@ -148,7 +202,17 @@ def personalized_pagerank(
             out[idx] = out[idx] + np.float32(1.0 - damping)
         return out
 
-    return VertexProgram("ppr", "sum", pre, apply_with_teleport, init)
+    scale, teleport = _f32(damping), _f32(1.0 - damping)
+
+    def apply_device(acc, old, out, meta, v0=0) -> None:
+        torch.mul(acc, scale, out=out)
+        idx = source - v0
+        if 0 <= idx < out.shape[0]:
+            out[idx] += teleport
+
+    return VertexProgram("ppr", "sum", pre, apply_with_teleport, init,
+                         pre_device=_divide_by_degree,
+                         apply_device=apply_device)
 
 
 def degree_centrality() -> VertexProgram:
@@ -166,7 +230,14 @@ def degree_centrality() -> VertexProgram:
             np.ones(meta.num_vertices, dtype=bool),
         )
 
-    return VertexProgram("degree", "sum", pre, apply, init)
+    def pre_device(src, deg, out) -> None:
+        out.fill_(1.0)
+
+    def apply_device(acc, old, out, meta, v0=0) -> None:
+        out.copy_(acc)
+
+    return VertexProgram("degree", "sum", pre, apply, init,
+                         pre_device=pre_device, apply_device=apply_device)
 
 
 # --------------------------------------------------------------------------

@@ -40,7 +40,10 @@ cuda       the hand-written kernels of ``repro_torch.kernels.spmv_ell`` —
 For ``torch`` and ``cuda`` an iteration's messages are staged on the device
 once (:func:`~repro_torch.kernels.spmv_ell.ops.stage_messages`, or
 ``stage_lanes`` / ``ragged_stage_lanes`` for lanes) and every dispatch
-copies its accumulator back to the host once.
+copies its accumulator back to the host once.  A single-lane ``run`` given
+its messages as a tensor on the executor's device, already padded to whole
+windows, stages nothing and yields each shard's accumulator as a view of
+the dispatch's accumulator on the device (the engine's device path).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import dataclasses
 import time
 from typing import (
     Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple,
+    Union,
 )
 
 import numpy as np
@@ -230,12 +234,14 @@ GroupDispatch = Optional[Tuple[np.ndarray, str]]
 
 @dataclasses.dataclass
 class ExecResult:
-    """One shard's accumulator plus which dispatch produced it."""
+    """One shard's accumulator plus which dispatch produced it: a host
+    array, or a tensor on the executor's device where ``run`` was given
+    its messages on the device."""
 
     shard_id: int
     v0: int
     v1: int
-    acc: np.ndarray
+    acc: Union[np.ndarray, torch.Tensor]
     batch_size: int = 1  # shards sharing the kernel dispatch
 
 
@@ -251,8 +257,9 @@ class ExecStats:
     shards' rows on the host (the wait for the kernels included, since
     the copy waits for them).  So ``stage_s + copy_back_s <= exec_s``; the
     rest is the launches and the bookkeeping.  The numpy oracle stages
-    and copies nothing, and the mesh executor's per-group path copies
-    inside its update (it books no ``copy_back_s``).
+    and copies nothing, the mesh executor's per-group path copies
+    inside its update (it books no ``copy_back_s``), and a ``run`` given
+    its messages on the device does neither (both read 0).
     """
 
     dispatches: int = 0
@@ -381,13 +388,27 @@ class _EllDispatch:
         return acc
 
     def _update(self, ells: Sequence[DeviceEll], staged, combine: str,
-                stats: Optional[ExecStats]) -> List[np.ndarray]:
-        """One dispatch of ``ells``: each shard's accumulator, on the host."""
+                stats: Optional[ExecStats], to_host: bool = True) -> List:
+        """One dispatch of ``ells``: each shard's accumulator, on the host,
+        or (``to_host`` False) as views of the accumulator on the device."""
         lanes = isinstance(staged, spmv_kernel.LaneMessages)
         fn = self._lane_fn if lanes else self._fn
         acc = self._launch(fn, ells, (staged, combine), stats)
+        if not to_host:
+            return list(torch.split(acc, [e.rows for e in ells], dim=-1))
         with _clock("exec.copy_back", stats, "copy_back_s"):
             return spmv_ops.split_rows(ells, acc.cpu().numpy())
+
+    def _given(self, ell: DeviceEll, msgs: torch.Tensor) -> torch.Tensor:
+        """Messages handed over on the device: checked, never staged."""
+        n_pad = ell.num_windows * ell.window
+        if (self._fn is None or msgs.device != self.device
+                or tuple(msgs.shape) != (n_pad,)):
+            raise ValueError(
+                f"messages on the device must be [{n_pad}] on {self.device} "
+                f"for the {self.backend_name} backend; got "
+                f"{tuple(msgs.shape)} on {msgs.device}")
+        return msgs
 
     def _stage_group(self, cache, ell: DeviceEll, msgs: np.ndarray,
                      stats: Optional[ExecStats]):
@@ -407,28 +428,32 @@ class PerShardExecutor(_EllDispatch):
             raise ValueError(f"unknown backend {backend}; have {sorted(table)}")
         super().__init__(backend, device, lanes)
 
-    def _one(self, ls: LoadedShard, msgs: np.ndarray, staged, combine: str,
-             stats: Optional[ExecStats]) -> np.ndarray:
+    def _one(self, ls: LoadedShard, msgs, staged, combine: str,
+             stats: Optional[ExecStats]):
         if self._fn is None:  # the numpy oracle
             oracle = update_shard_numpy_lanes if msgs.ndim == 2 else update_shard_numpy
             return oracle(ls.csr, None, msgs, combine)
-        acc, = self._update([ls.ell], staged, combine, stats)
+        acc, = self._update([ls.ell], staged, combine, stats,
+                            to_host=not isinstance(msgs, torch.Tensor))
         return acc
 
     def run(
         self,
         loaded: Iterable[LoadedShard],
-        msgs: np.ndarray,
+        msgs: Union[np.ndarray, torch.Tensor],
         combine: str,
         stats: Optional[ExecStats] = None,
     ) -> Iterator[ExecResult]:
         staged = None
+        on_device = isinstance(msgs, torch.Tensor)
         for ls in loaded:
             t0 = time.perf_counter()
             with trace.span(
                 "exec.dispatch", shard=ls.shard_id, backend=self.backend_name
             ):
-                if staged is None and self._fn is not None:
+                if staged is None and on_device:
+                    staged = self._given(ls.ell, msgs)
+                elif staged is None and self._fn is not None:
                     staged = self._stage(ls.ell, msgs, stats)
                 acc = self._one(ls, msgs, staged, combine, stats)
             if stats is not None:
@@ -504,20 +529,22 @@ class BatchedEllExecutor(_EllDispatch):
     def run(
         self,
         loaded: Iterable[LoadedShard],
-        msgs: np.ndarray,
+        msgs: Union[np.ndarray, torch.Tensor],
         combine: str,
         stats: Optional[ExecStats] = None,
     ) -> Iterator[ExecResult]:
         staged = None
+        on_device = isinstance(msgs, torch.Tensor)
         for buf in self._batches(loaded):
             t0 = time.perf_counter()
             if staged is None:
-                staged = self._stage(buf[0].ell, msgs, stats)
+                staged = (self._given(buf[0].ell, msgs) if on_device
+                          else self._stage(buf[0].ell, msgs, stats))
             with trace.span(
                 "exec.dispatch", shards=len(buf), backend=self.backend_name
             ):
                 accs = self._update([ls.ell for ls in buf], staged, combine,
-                                    stats)
+                                    stats, to_host=not on_device)
             if stats is not None:
                 stats.dispatches += 1
                 stats.shards_executed += len(buf)

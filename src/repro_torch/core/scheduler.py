@@ -195,27 +195,40 @@ class ShardScheduler:
             return bool(np.isin(active_ids, srcs, assume_unique=False).any())
         return self.filters[p].any_member(active_ids)
 
+    def tests_shards(self, active_count: int) -> bool:
+        """Will a plan for ``active_count`` active vertices test shards
+        against their ids (selective scheduling engaged)?"""
+        return (
+            self.selective
+            and active_count / max(self.meta.num_vertices, 1) < self.threshold
+            and self.filters is not None
+        )
+
     def plan(
         self,
-        active_ids: np.ndarray,
+        active_ids: Optional[np.ndarray],
         *,
         lane_active: Optional[Sequence[np.ndarray]] = None,
+        active_count: Optional[int] = None,
     ) -> ShardPlan:
         """Emit this iteration's ordered shard plan.
 
-        ``active_ids`` is the (union) active vertex set.  ``lane_active``
-        optionally carries the per-lane active sets of a lane sweep; when
-        selective scheduling engages (which implies every lane is below
-        the threshold too), the plan then also holds a per-shard lane mask.
+        ``active_ids`` is the (union) active vertex set.  It may be None
+        with ``active_count`` given where :meth:`tests_shards` is False for
+        that count: a plan that tests no shard needs only the count.
+        ``lane_active`` optionally carries the per-lane active sets of a
+        lane sweep; when selective scheduling engages (which implies every
+        lane is below the threshold too), the plan then also holds a
+        per-shard lane mask.
         """
         with trace.span("sweep.plan") as sp:
             t0 = time.perf_counter()
-            active_ratio = len(active_ids) / max(self.meta.num_vertices, 1)
-            use_selective = (
-                self.selective
-                and active_ratio < self.threshold
-                and self.filters is not None
-            )
+            if active_ids is not None:
+                active_count = len(active_ids)
+            active_ratio = active_count / max(self.meta.num_vertices, 1)
+            use_selective = self.tests_shards(active_count)
+            if use_selective and active_ids is None:
+                raise ValueError("a selective plan needs the active ids")
             planned: List[int] = []
             skipped: List[int] = []
             lane_masks: Optional[Dict[int, np.ndarray]] = None

@@ -32,8 +32,19 @@ All layer combinations produce bit-identical values: the plan fixes the
 processing order, only the consumer thread touches the vertex arrays, and
 batched dispatch is a pure concatenation (DESIGN.md §5).
 
-The vertex arrays and the programs stay numpy on the host; the ``torch``
-and ``cuda`` backends run the per-shard update on ``device``.
+Where the vertex arrays live follows from what the engine sees.  On an ELL
+backend (``torch``, ``cuda``) without a mesh, a program with device forms
+(every built-in one) runs with both vertex arrays, the degree term and the
+padded message buffer on ``device`` for the whole run: ``pre``, ``apply``
+and the activity test are device passes, the executor takes the messages
+and hands back the accumulators on the device, and only the count of
+changed vertices (and, in an iteration that plans selectively, their ids)
+comes to the host.  The spans ``vsw.pre`` and ``vsw.apply`` then time
+launches, and ``vsw.activity`` holds the iteration's wait for the device.
+The ``numpy`` oracle, the mesh engines and a program without device forms
+keep the vertex arrays and the programs in numpy on the host; the ``torch``
+and ``cuda`` backends still run the per-shard update on ``device``.
+Both paths give bitwise the same values.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..launch.mesh import make_host_mesh
 from ..obs import trace
@@ -52,8 +64,8 @@ from .apps import VertexProgram
 from .cache import ShardCache, select_cache_mode
 from .csr import DeviceEll
 from .distributed import MeshPartition
-from .executor import (BACKENDS, ExecStats, MeshLaneExecutor, make_executor,
-                       resolve_device)
+from .executor import (BACKENDS, ELL_BACKENDS, ExecStats, MeshLaneExecutor,
+                       make_executor, resolve_device)
 from .graph import Graph
 from .pipeline import PipelineStats, ShardPipeline
 from .scheduler import ShardScheduler
@@ -74,7 +86,11 @@ class IterStats:
     ``copy_back_s`` are parts of it (:class:`~repro_torch.core.executor.
     ExecStats`).  Each step is also a span of :mod:`repro_torch.obs.trace`
     (``sweep.plan``, ``vsw.pre``, ``vsw.apply``, ``vsw.activity``,
-    ``exec.stage``, ``exec.copy_back``)."""
+    ``exec.stage``, ``exec.copy_back``).  ``on_device`` says the iteration
+    kept its vertex arrays on the device (``stage_s`` and ``copy_back_s``
+    are then 0); ``ids_to_host`` counts the active ids its plan took on the
+    host, 0 where the plan needed only their count; both are attributes of
+    the ``vsw.iter`` span too."""
 
     iteration: int
     time_s: float
@@ -97,6 +113,8 @@ class IterStats:
     pre_s: float = 0.0  # program.pre and the carried-over copy
     apply_s: float = 0.0  # program.apply and its writes, all shards
     activity_s: float = 0.0  # program.is_active and the active ids
+    on_device: bool = False  # vertex arrays on the device (module docstring)
+    ids_to_host: int = 0  # active ids the plan took on the host (device path)
     dispatches: int = 0  # kernel dispatches (< processed when batching)
     padding_ratio: float = 0.0  # of the dispatched ELL slots
     prefetch_depth: int = 0
@@ -407,12 +425,23 @@ class VSWEngine:
             with self._sweep_session():
                 return self._run(program, max_iters=max_iters)
 
+    def _arrays_on_device(self, program: VertexProgram) -> bool:
+        """The device path: an ELL backend, no mesh, and a program with
+        device forms."""
+        return (self.backend_name in ELL_BACKENDS and self.partition is None
+                and program.has_device_forms)
+
     def _run(self, program: VertexProgram, *, max_iters: int) -> RunResult:
         meta = self.meta
         with trace.span("vsw.init"):
             src_vals, active_mask = program.init(meta)
             src_vals = src_vals.astype(np.float32)
-            active_ids = np.flatnonzero(active_mask).astype(np.int64)
+            if self._arrays_on_device(program):
+                arrays = _DeviceArrays(program, meta, src_vals, active_mask,
+                                       self.scheduler, self.device,
+                                       self.store.ell_params()["window"])
+            else:
+                arrays = _HostArrays(program, meta, src_vals, active_mask)
         stats: List[IterStats] = []
         converged = False
         pstats = PipelineStats()
@@ -427,10 +456,10 @@ class VSWEngine:
             xstats.reset()
 
             with trace.span("vsw.iter", iteration=it) as it_sp:
-                plan = self.scheduler.plan(active_ids)
+                ids_to_host = arrays.ids_to_host
+                plan = arrays.plan(self.scheduler)
                 with trace.timed("vsw.pre") as pre:
-                    msgs = program.pre(src_vals, meta.out_deg).astype(np.float32)
-                    dst_vals = src_vals.copy()  # carried over for skipped shards
+                    msgs = arrays.pre(plan)
 
                 apply_s = 0.0
                 loaded = self.pipeline.iter_shards(plan.shards, stats=pstats)
@@ -439,24 +468,17 @@ class VSWEngine:
                         loaded, msgs, program.combine, xstats
                     ):
                         with trace.timed("vsw.apply", shard=res.shard_id) as ap:
-                            new = program.apply(
-                                np.asarray(res.acc, dtype=src_vals.dtype),
-                                src_vals[res.v0: res.v1],
-                                meta,
-                                res.v0,
-                            )
-                            dst_vals[res.v0: res.v1] = new
+                            arrays.apply(res)
                         apply_s += ap.s
                 finally:
                     # Deterministic drain: on a failure the prefetch window
                     # is cancelled+awaited NOW, not at GC.
                     loaded.close()
-                it_sp.set(shards=plan.num_planned, skipped=plan.num_skipped)
+                it_sp.set(shards=plan.num_planned, skipped=plan.num_skipped,
+                          on_device=arrays.on_device, ids_to_host=ids_to_host)
 
             with trace.timed("vsw.activity") as act:
-                new_active = program.is_active(dst_vals, src_vals)
-                active_ids = np.flatnonzero(new_active).astype(np.int64)
-            src_vals = dst_vals
+                arrays.activity(self.scheduler)
 
             with trace.span("vsw.stats"):
                 dio = self.store.io - io0
@@ -471,8 +493,8 @@ class VSWEngine:
                     bytes_read=dio.bytes_read,
                     cache_hits=cache.hits - cache_h0 if cache else 0,
                     cache_misses=cache.misses - cache_m0 if cache else 0,
-                    active_count=len(active_ids),
-                    active_ratio=len(active_ids) / max(meta.num_vertices, 1),
+                    active_count=arrays.count,
+                    active_ratio=arrays.count / max(meta.num_vertices, 1),
                     selective_on=plan.selective_on,
                     load_total_s=pstats.load_total_s,
                     load_wait_s=pstats.wait_s,
@@ -485,6 +507,8 @@ class VSWEngine:
                     pre_s=pre.s,
                     apply_s=apply_s,
                     activity_s=act.s,
+                    on_device=arrays.on_device,
+                    ids_to_host=ids_to_host,
                     dispatches=xstats.dispatches,
                     padding_ratio=xstats.padding_ratio,
                     prefetch_depth=self.pipeline.depth,
@@ -492,8 +516,114 @@ class VSWEngine:
                     device_dispatches=dev_disp,
                     device_bytes=dev_bytes,
                 ))
-            if len(active_ids) == 0:
+            if arrays.count == 0:
                 converged = True
                 break
 
-        return RunResult(values=src_vals, iterations=stats, converged=converged)
+        return RunResult(values=arrays.values(), iterations=stats,
+                         converged=converged)
+
+
+class _HostArrays:
+    """The vertex arrays and the program's steps in numpy on the host."""
+
+    on_device = False
+    ids_to_host = 0
+
+    def __init__(self, program: VertexProgram, meta, vals: np.ndarray,
+                 active_mask: np.ndarray):
+        self.program, self.meta = program, meta
+        self.src = vals
+        self.dst = None
+        self.ids = np.flatnonzero(active_mask).astype(np.int64)
+
+    @property
+    def count(self) -> int:
+        return len(self.ids)
+
+    def plan(self, scheduler: ShardScheduler):
+        return scheduler.plan(self.ids)
+
+    def pre(self, plan) -> np.ndarray:
+        msgs = self.program.pre(self.src, self.meta.out_deg).astype(np.float32)
+        self.dst = self.src.copy()  # carried over for skipped shards
+        return msgs
+
+    def apply(self, res) -> None:
+        self.dst[res.v0: res.v1] = self.program.apply(
+            np.asarray(res.acc, dtype=self.src.dtype),
+            self.src[res.v0: res.v1], self.meta, res.v0)
+
+    def activity(self, scheduler: ShardScheduler) -> None:
+        new_active = self.program.is_active(self.dst, self.src)
+        self.ids = np.flatnonzero(new_active).astype(np.int64)
+        self.src = self.dst
+
+    def values(self) -> np.ndarray:
+        return self.src
+
+
+class _DeviceArrays:
+    """Both vertex arrays, the degree term ``float32(max(out_deg, 1))`` and
+    the message buffer (zero-padded to whole windows, the length the
+    executor stages to) on ``device`` for one run; the program's device
+    forms write them in place.  The host holds the count of active
+    vertices, and their ids only for a plan that tests shards against
+    them.  ``arrays[cur]`` is the iteration's input and the
+    other its output; ``views[i][p]`` is shard ``p``'s interval of
+    ``arrays[i]``, made once a run: a slice is a host op of its own, paid
+    per shard and iteration otherwise."""
+
+    on_device = True
+
+    def __init__(self, program: VertexProgram, meta, vals: np.ndarray,
+                 active_mask: np.ndarray, scheduler: ShardScheduler,
+                 device: torch.device, window: int):
+        self.program, self.meta = program, meta
+        first = torch.from_numpy(vals).to(device)
+        self.arrays = (first, first.clone())
+        self.cur = 0
+        iv = meta.intervals.tolist()
+        self.views = [[a[v0: v1] for v0, v1 in zip(iv[:-1], iv[1:])]
+                      for a in self.arrays]
+        self.deg = torch.from_numpy(
+            np.maximum(meta.out_deg, 1).astype(np.float32)).to(device)
+        n_pad = max(1, -(-meta.num_vertices // window)) * window
+        self.msgs = torch.zeros(n_pad, dtype=torch.float32, device=device)
+        self.msgs_out = self.msgs[: meta.num_vertices]  # pre's; the rest stays 0
+        self.count = int(np.count_nonzero(active_mask))
+        self.ids = (np.flatnonzero(active_mask).astype(np.int64)
+                    if scheduler.tests_shards(self.count) else None)
+
+    @property
+    def ids_to_host(self) -> int:
+        return 0 if self.ids is None else len(self.ids)
+
+    def plan(self, scheduler: ShardScheduler):
+        return scheduler.plan(self.ids, active_count=self.count)
+
+    def pre(self, plan) -> torch.Tensor:
+        src, dst = self.views[self.cur], self.views[1 - self.cur]
+        self.program.pre_device(self.arrays[self.cur], self.deg, self.msgs_out)
+        for p in plan.skipped:  # the carried values of skipped intervals
+            dst[p].copy_(src[p])
+        return self.msgs
+
+    def apply(self, res) -> None:
+        p = res.shard_id
+        self.program.apply_device(res.acc, self.views[self.cur][p],
+                                  self.views[1 - self.cur][p], self.meta,
+                                  res.v0)
+
+    def activity(self, scheduler: ShardScheduler) -> None:
+        changed = self.program.is_active(self.arrays[1 - self.cur],
+                                         self.arrays[self.cur])
+        # the iteration's one wait for the device
+        self.count = int(torch.count_nonzero(changed).item())
+        self.ids = (torch.nonzero(changed).view(-1).cpu().numpy()
+                    if self.count and scheduler.tests_shards(self.count)
+                    else None)
+        self.cur = 1 - self.cur
+
+    def values(self) -> np.ndarray:
+        return self.arrays[self.cur].cpu().numpy()

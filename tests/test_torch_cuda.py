@@ -10,6 +10,7 @@ reduction order over K differs) and rtol=1e-5, atol=1e-9 for PageRank
 values after 15 iterations.
 """
 
+import dataclasses
 import functools
 import time
 
@@ -158,8 +159,34 @@ def test_engine_cuda_matches_torch_backend(dev, tmp_path, name):
     for key in (("cuda", False), ("cuda", True)):
         assert _close(out[key].values, ref, apps.get_program(name).combine,
                       rtol=1e-5, atol=1e-9), key
-        assert all(0 < i.stage_s + i.copy_back_s <= i.exec_s
+        # the device path: nothing staged, nothing copied back
+        assert all(i.on_device and i.stage_s == i.copy_back_s == 0 < i.exec_s
                    for i in out[key].iterations)
+
+
+@pytest.mark.parametrize("name", ["pagerank", "sssp"])
+def test_engine_device_path_bitwise_host_path_on_the_card(dev, tmp_path, name):
+    """A resident cuda engine keeps its vertex arrays on the card: bitwise
+    the host path (the program without its device forms) on the card,
+    which stages the messages and copies each accumulator back."""
+    g = rmat_graph(1 << 16, 1 << 20, seed=7)
+    root = str(tmp_path / "s")
+    VSWEngine.from_graph(g, root, backend="numpy", device=dev, num_shards=8,
+                         window=4096, k=128).close()
+    program = apps.get_program(name)
+    host = dataclasses.replace(program, pre_device=None, apply_device=None)
+    with VSWEngine.from_store(root, backend="cuda", device=dev, batch_shards=4,
+                              device_resident=True) as eng:
+        on_card = eng.run(program, max_iters=20)
+        on_host = eng.run(host, max_iters=20)
+    assert on_card.values.tobytes() == on_host.values.tobytes()
+    assert len(on_card.iterations) == len(on_host.iterations) > 1
+    assert all(i.on_device and i.stage_s == i.copy_back_s == 0
+               for i in on_card.iterations)
+    assert not any(i.on_device for i in on_host.iterations)
+    assert all(0 < i.stage_s + i.copy_back_s <= i.exec_s
+               for i in on_host.iterations if i.shards_processed)
+    assert all(i.ids_to_host == 0 for i in on_card.iterations if not i.selective_on)
 
 
 # ------------------------------------------------------------------- lanes

@@ -13,6 +13,8 @@ opening is exercised too) and run the same program:
 Graphs stay at 2k vertices or fewer on the Pallas paths.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -163,12 +165,25 @@ def test_device_resident_matches_and_skips_reads(port_store):
     assert all(i.to_device_s == 0.0 for i in r.iterations[1:])
 
 
-def test_iteration_stats_of_ell_backend(port_store):
-    r = _run(port_store, apps.sssp(0), backend="cuda", batch_shards=2)
+@pytest.mark.parametrize("path", ["host", "device"])
+def test_iteration_stats_of_ell_backend(port_store, path):
+    """The host path (the program without its device forms) stages the
+    messages and copies the accumulators back; the device path does
+    neither."""
+    program = apps.sssp(0)
+    if path == "host":
+        program = dataclasses.replace(program, pre_device=None,
+                                      apply_device=None)
+    r = _run(port_store, program, backend="cuda", batch_shards=2)
     it = r.iterations[0]
     assert it.dispatches == 3 and it.shards_processed == 6
     assert 0.0 < it.padding_ratio < 1.0
-    assert 0.0 < it.stage_s + it.copy_back_s <= it.exec_s
+    if path == "host":
+        assert 0.0 < it.stage_s + it.copy_back_s <= it.exec_s
+        assert not it.on_device
+    else:
+        assert it.stage_s == it.copy_back_s == 0.0
+        assert it.on_device
     assert it.exec_s > 0.0 and it.time_s >= it.exec_s
 
 

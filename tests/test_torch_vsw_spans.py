@@ -5,8 +5,14 @@ value.
 
 Runs PageRank and SSSP on the tiny store of ``tests/test_torch_vsw.py``
 through the three executors (per shard, batched, and the mesh executor
-over two CPU slots), with the ``cuda`` backend's plain versions.
+over two CPU slots), with the ``cuda`` backend's plain versions, on the
+host path (the programs without their device forms) and, for the two
+single-device executors, on the device path (``-device`` cases), which
+stages nothing and copies no accumulator back.
 """
+
+import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -45,7 +51,12 @@ EXECUTORS = {
     "mesh": dict(batch_shards=2, mesh=2),
 }
 PROGRAMS = {"pagerank": (apps.pagerank, 6), "sssp": (lambda: apps.sssp(0), 30)}
-CASES = [(p, x) for p in PROGRAMS for x in EXECUTORS]
+#: spans only the host path has
+HOST_ONLY = {"exec.stage", "exec.copy_back"}
+CASES = ([(p, x, "host") for p in PROGRAMS for x in EXECUTORS]
+         + [(p, x, "device") for p in PROGRAMS for x in ("per_shard", "batched")])
+IDS = [f"{p}-{x}" + ("-device" if path == "device" else "")
+       for p, x, path in CASES]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,25 +76,37 @@ def store(tmp_path_factory):
     return str(root)
 
 
-def _run(store, program, executor, tracer=None):
+def _run(store, program, executor, path, tracer=None):
     make, iters = PROGRAMS[program]
+    prog = make()
+    if path == "host":
+        prog = dataclasses.replace(prog, pre_device=None, apply_device=None)
     with VSWEngine.from_store(store, device="cpu", backend="cuda",
                               **EXECUTORS[executor]) as eng:
         if tracer is None:
-            return eng.run(make(), max_iters=iters)
+            return eng.run(prog, max_iters=iters)
         with trace.tracing(tracer):
-            return eng.run(make(), max_iters=iters)
+            return eng.run(prog, max_iters=iters)
 
 
 @pytest.fixture(scope="module")
 def runs(store):
-    """``(program, executor) -> (traced RunResult, its spans, untraced
-    RunResult)``; a span is ``(name, start us, end us, parent, attrs)``."""
+    """``(program, executor, path) -> (traced RunResult, its spans,
+    untraced RunResult)``; a span is ``(name, start us, end us, parent,
+    attrs)``.  The engines run under a short GIL switch interval: a loader
+    thread that takes the GIL between a step's clock and its span's stamp
+    would otherwise hold the engine up to 5 ms, far past the counters'
+    200 us slack, on a loaded host."""
     out = {}
-    for case in CASES:
-        tracer = trace.Tracer()
-        traced = _run(store, *case, tracer=tracer)
-        out[case] = (traced, _spans(tracer), _run(store, *case))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for case in CASES:
+            tracer = trace.Tracer()
+            traced = _run(store, *case, tracer=tracer)
+            out[case] = (traced, _spans(tracer), _run(store, *case))
+    finally:
+        sys.setswitchinterval(interval)
     return out
 
 
@@ -116,20 +139,29 @@ def _by_iteration(spans):
     return out
 
 
-@pytest.mark.parametrize("program,executor", CASES)
-def test_each_span_nests_under_its_parent(runs, program, executor):
-    result, spans, _ = runs[program, executor]
-    assert set(PARENTS) <= {s[0] for s in spans}
+@pytest.mark.parametrize("program,executor,path", CASES, ids=IDS)
+def test_each_span_nests_under_its_parent(runs, program, executor, path):
+    result, spans, _ = runs[program, executor, path]
+    names = {s[0] for s in spans}
+    if path == "host":
+        assert set(PARENTS) <= names
+    else:
+        assert set(PARENTS) - HOST_ONLY <= names
+        assert not names & HOST_ONLY
     for name, _, _, parent, _ in spans:
         if name in PARENTS:
             assert parent in PARENTS[name], (name, parent)
     assert sum(s[0] == "vsw.init" for s in spans) == 1
-    assert sum(s[0] == "vsw.iter" for s in spans) == len(result.iterations)
+    iters = [s[4] for s in spans if s[0] == "vsw.iter"]
+    assert len(iters) == len(result.iterations)
+    for attrs, it in zip(iters, result.iterations):
+        assert attrs["on_device"] == it.on_device == (path == "device")
+        assert attrs["ids_to_host"] == it.ids_to_host
 
 
-@pytest.mark.parametrize("program,executor", CASES)
-def test_one_apply_span_per_processed_shard(runs, program, executor):
-    result, spans, _ = runs[program, executor]
+@pytest.mark.parametrize("program,executor,path", CASES, ids=IDS)
+def test_one_apply_span_per_processed_shard(runs, program, executor, path):
+    result, spans, _ = runs[program, executor, path]
     per_iter = _by_iteration(spans)
     assert len(per_iter) == len(result.iterations)
     for it, group in zip(result.iterations, per_iter):
@@ -138,9 +170,9 @@ def test_one_apply_span_per_processed_shard(runs, program, executor):
         assert len(set(applied)) == len(applied)
 
 
-@pytest.mark.parametrize("program,executor", CASES)
-def test_counters_match_their_spans(runs, program, executor):
-    result, spans, _ = runs[program, executor]
+@pytest.mark.parametrize("program,executor,path", CASES, ids=IDS)
+def test_counters_match_their_spans(runs, program, executor, path):
+    result, spans, _ = runs[program, executor, path]
     for it, group in zip(result.iterations, _by_iteration(spans)):
         for field, name in COUNTERS.items():
             span_s = sum(b - a for n, a, b, _, _ in group if n == name) / 1e6
@@ -150,30 +182,40 @@ def test_counters_match_their_spans(runs, program, executor):
                 it.iteration, field, got, span_s)
 
 
-@pytest.mark.parametrize("program,executor", CASES)
-def test_named_parts_fit_in_the_iteration(runs, program, executor):
-    result, _, plain = runs[program, executor]
+@pytest.mark.parametrize("program,executor,path", CASES, ids=IDS)
+def test_named_parts_fit_in_the_iteration(runs, program, executor, path):
+    result, _, plain = runs[program, executor, path]
     for r in (result, plain):
         for it in r.iterations:
-            assert it.stage_s + it.copy_back_s <= it.exec_s
+            assert it.on_device == (path == "device")
+            if path == "host":
+                assert it.stage_s + it.copy_back_s <= it.exec_s
+            else:
+                assert it.stage_s == it.copy_back_s == 0.0
             named = (it.exec_s + it.load_wait_s + it.to_device_s + it.plan_s
                      + it.pre_s + it.apply_s + it.activity_s)
             assert named <= it.time_s
 
 
-@pytest.mark.parametrize("program,executor", CASES)
+@pytest.mark.parametrize("program,executor,path", CASES, ids=IDS)
 def test_tracing_off_gives_the_same_values_and_counts(runs, program,
-                                                      executor):
-    traced, _, plain = runs[program, executor]
+                                                      executor, path):
+    traced, _, plain = runs[program, executor, path]
     assert np.array_equal(plain.values, traced.values)
     assert len(plain.iterations) == len(traced.iterations)
     for a, b in zip(plain.iterations, traced.iterations):
         assert a.shards_processed == b.shards_processed
         assert a.active_count == b.active_count
+        assert a.ids_to_host == b.ids_to_host
         assert a.plan_s > 0 and a.pre_s > 0 and a.activity_s > 0
-        if a.shards_processed:
+        if path == "device":
+            assert a.on_device and a.stage_s == a.copy_back_s == 0.0
+            if a.shards_processed:
+                assert a.apply_s > 0
+        elif a.shards_processed:
             assert a.apply_s > 0 and a.copy_back_s > 0
-    assert sum(i.stage_s for i in plain.iterations) > 0
+    if path == "host":
+        assert sum(i.stage_s for i in plain.iterations) > 0
 
 
 def test_timed_clocks_with_tracing_off_and_on():

@@ -16,7 +16,15 @@ mode-3   zlib-1              zlib level 3
 mode-4   zlib-3              zlib level 6
 =======  ==================  =============================================
 
-Eviction is LRU under a byte budget.  The cache stores the *container
+Two admission policies share one byte budget.  ``"lru"`` (the default,
+the reference's) admits every miss and evicts the least recently used
+entries to make room.  ``"keep"`` admits a miss only where it fits in
+the room left, and evicts nothing: the paper keeps a fixed subset of the
+shards, so a scan in the same order every iteration (PageRank plans
+every shard) hits on the cached share of a store larger than the budget,
+where LRU would evict each shard before the scan came back to it.  An
+``invalidate`` frees room under either policy, and the next miss may fill
+it.  The cache stores the *container
 bytes* (what would have been read from disk), so hit/miss accounting lines
 up exactly with the I/O model's ``θ·D·|E|`` term: ``θ`` is literally
 ``misses / lookups`` weighted by shard size.
@@ -33,7 +41,7 @@ from typing import Callable, Dict, Optional
 
 from ..obs import trace
 
-__all__ = ["CacheMode", "CacheStats", "ShardCache", "MODES",
+__all__ = ["CacheMode", "CacheStats", "ShardCache", "MODES", "POLICIES",
            "mode_iteration_cost", "select_cache_mode"]
 
 
@@ -50,6 +58,9 @@ MODES: Dict[int, CacheMode] = {
     3: CacheMode("zlib-3", lambda b: zlib.compress(b, 3), zlib.decompress),
     4: CacheMode("zlib-6", lambda b: zlib.compress(b, 6), zlib.decompress),
 }
+
+#: admission policies (module docstring)
+POLICIES = ("lru", "keep")
 
 
 @dataclasses.dataclass
@@ -82,7 +93,8 @@ class CacheStats:
 
 
 class ShardCache:
-    """LRU cache of (optionally compressed) shard container bytes.
+    """Byte-budgeted cache of (optionally compressed) shard container
+    bytes, under the ``"lru"`` or ``"keep"`` policy (module docstring).
 
     Thread-safe: the prefetching loader (``repro_torch.core.pipeline``) calls
     ``get``/``put`` from background threads, so the LRU book-keeping and the
@@ -90,12 +102,17 @@ class ShardCache:
     outside the lock — they are the expensive part and operate on local data.
     """
 
-    def __init__(self, capacity_bytes: int, mode: int = 1):
+    def __init__(self, capacity_bytes: int, mode: int = 1,
+                 policy: str = "lru"):
         if mode not in MODES:
             raise ValueError(f"unknown cache mode {mode}; valid: {sorted(MODES)}")
+        if policy not in POLICIES:
+            raise ValueError(f"unknown cache policy {policy!r}; valid: "
+                             f"{list(POLICIES)}")
         self.capacity_bytes = capacity_bytes
         self.mode = MODES[mode]
         self.mode_id = mode
+        self.policy = policy
         self.stats = CacheStats()
         self._data: "OrderedDict[int, bytes]" = OrderedDict()
         self._bytes = 0
@@ -155,6 +172,9 @@ class ShardCache:
             if shard_id in self._data:  # raced with another loader thread
                 self._data.move_to_end(shard_id)
                 return True
+            if (self.policy == "keep"
+                    and self._bytes + len(blob) > self.capacity_bytes):
+                return False
             while self._bytes + len(blob) > self.capacity_bytes and self._data:
                 _, old = self._data.popitem(last=False)
                 self._bytes -= len(old)

@@ -63,6 +63,13 @@ class LoadedShard:
     load_s: float = 0.0  # in-thread (or inline) load+decode duration
     wait_s: float = 0.0  # critical-path stall until this shard was ready
     to_device_s: float = 0.0  # consumer-side host->device copy + order
+    # Parts of one load from the store or the byte cache, in the loading
+    # thread's CPU time (time.thread_time); 0 for a shard served from the
+    # resident map or decoded through the delta overlay.
+    read_s: float = 0.0  # the cache's get, and the store read on a miss
+    decode_s: float = 0.0  # the npz parse and the mask unpack
+    cache_bytes: int = 0  # raw container bytes the byte cache served (ditto)
+    to_device_bytes: int = 0  # host planes ell_to_device copied, logical too
     from_cache: bool = False
     from_resident: bool = False
     logical: bool = False  # decoded through the delta overlay (never resident)
@@ -82,6 +89,10 @@ class PipelineStats:
     load_total_s: float = 0.0  # sum of load durations (hidden + exposed)
     wait_s: float = 0.0  # exposed: consumer stalled on a future
     to_device_s: float = 0.0  # exposed: consumer-side device copies
+    read_s: float = 0.0  # thread CPU time of cache gets and store reads
+    decode_s: float = 0.0  # thread CPU time of npz parse and mask unpack
+    cache_bytes: int = 0  # container bytes served by the byte cache
+    to_device_bytes: int = 0  # host bytes copied to the device
 
     @property
     def overlap_s(self) -> float:
@@ -89,8 +100,9 @@ class PipelineStats:
         return max(0.0, self.load_total_s - self.wait_s)
 
     def reset(self) -> None:
-        self.shards_loaded = 0
+        self.shards_loaded = self.cache_bytes = self.to_device_bytes = 0
         self.load_total_s = self.wait_s = self.to_device_s = 0.0
+        self.read_s = self.decode_s = 0.0
 
 
 class ShardPipeline:
@@ -196,22 +208,28 @@ class ShardPipeline:
         # Snapshot the generation BEFORE the read: an overwrite landing
         # between our read and our cache insert moves it, and we discard.
         gen0 = self.store.shard_generation(p)
-        from_cache = False
+        c0 = time.thread_time()
         raw = self.cache.get(p) if self.cache is not None else None
-        if raw is not None:
-            from_cache = True
-        else:
-            raw = self.store.shard_bytes(p, self.fmt)
-            if self.cache is not None:
-                self.cache.put(p, raw)
-                if self.store.shard_generation(p) != gen0:
-                    self.cache.invalidate(p)  # raced with an overwrite
+        from_cache = raw is not None
+        if not from_cache:
+            with trace.span("shard.read", shard=p) as sp:
+                raw = self.store.shard_bytes(p, self.fmt)
+                sp.set(bytes=len(raw))
+        read_s = time.thread_time() - c0
+        if not from_cache and self.cache is not None:
+            self.cache.put(p, raw)
+            if self.store.shard_generation(p) != gen0:
+                self.cache.invalidate(p)  # raced with an overwrite
+        c0 = time.thread_time()
         with trace.span("shard.decode", shard=p, fmt=self.fmt):
             if self.fmt == "csr":
                 csr, ell = self.store.decode_csr(p, raw), None
             else:
                 csr, ell = None, self.store.decode_ell(p, raw)
+        decode_s = time.thread_time() - c0
         return LoadedShard(p, csr, ell, load_s=time.perf_counter() - t0,
+                           read_s=read_s, decode_s=decode_s,
+                           cache_bytes=len(raw) if from_cache else 0,
                            from_cache=from_cache, generation=gen0)
 
     def _to_device(self, ls: LoadedShard) -> LoadedShard:
@@ -223,6 +241,7 @@ class ShardPipeline:
         device = (self.device if self.shard_device is None
                   else self.shard_device(ls.shard_id))
         with trace.span("shard.to_device", shard=ls.shard_id):
+            ls.to_device_bytes = ls.ell.nbytes
             ls.ell = ell_to_device(ls.ell, device)
         if self.resident is not None and not ls.logical:
             with self._resident_lock:
@@ -300,3 +319,7 @@ class ShardPipeline:
         stats.load_total_s += ls.load_s
         stats.wait_s += ls.wait_s
         stats.to_device_s += ls.to_device_s
+        stats.read_s += ls.read_s
+        stats.decode_s += ls.decode_s
+        stats.cache_bytes += ls.cache_bytes
+        stats.to_device_bytes += ls.to_device_bytes

@@ -18,6 +18,8 @@ import json
 import os
 import threading
 import time
+import zipfile
+import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,9 +71,92 @@ def _save_npz_bytes(**arrays) -> bytes:
     return buf.getvalue()
 
 
-def _load_npz_bytes(raw: bytes) -> Dict[str, np.ndarray]:
-    with np.load(io.BytesIO(raw)) as z:
-        return {k: z[k] for k in z.files}
+class _BufferFile(io.RawIOBase):
+    """A read-only, seekable file over any buffer, for ``zipfile``'s reads
+    of a container's directory: ``io.BytesIO`` would copy a buffer that is
+    not ``bytes`` whole."""
+
+    def __init__(self, buf):
+        self._mv = memoryview(buf).cast("B")
+        self._pos = 0
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def tell(self) -> int:
+        return self._pos
+
+    def seek(self, pos: int, whence: int = io.SEEK_SET) -> int:
+        base = {io.SEEK_SET: 0, io.SEEK_CUR: self._pos,
+                io.SEEK_END: len(self._mv)}[whence]
+        self._pos = max(0, base + pos)
+        return self._pos
+
+    def readinto(self, b) -> int:
+        n = max(0, min(len(b), len(self._mv) - self._pos))
+        b[:n] = self._mv[self._pos:self._pos + n]
+        self._pos += n
+        return n
+
+
+def _npy_member(data: memoryview) -> Optional[np.ndarray]:
+    """The array of one stored ``.npy`` member: a view of ``data`` where
+    that is writable, else a copy; ``None`` for a header version this
+    parser leaves to ``np.load``."""
+    f = io.BytesIO(data[:12].tobytes())
+    version = np.lib.format.read_magic(f)
+    if version not in ((1, 0), (2, 0)):
+        return None
+    width = 2 if version == (1, 0) else 4
+    start = 8 + width + int.from_bytes(data[8:8 + width], "little")
+    f = io.BytesIO(data[:start].tobytes())
+    np.lib.format.read_magic(f)
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read_header(f)
+    if dtype.hasobject:
+        raise ValueError("Object arrays cannot be loaded when allow_pickle=False")
+    count = int(np.prod(shape, dtype=np.int64))
+    flat = np.frombuffer(data, dtype=dtype, count=count, offset=start)
+    arr = flat.reshape(shape[::-1]).T if fortran else flat.reshape(shape)
+    return arr if arr.flags.writeable else arr.copy(order="K")
+
+
+def _load_npz_bytes(raw) -> Dict[str, np.ndarray]:
+    """The arrays of an ``np.savez`` container, as ``np.load`` gives them.
+
+    A stored (uncompressed) member is checked against its CRC-32 and then
+    taken in one call, so a 200 MB shard costs a few C calls rather than
+    ``np.load``'s loop over 256 KiB chunks, each a read, a CRC update and
+    a copy that take and give back the interpreter lock.  From a writable
+    buffer (:meth:`ShardStore.shard_bytes`) the arrays are views of it,
+    and copies from anything else (``bytes``), as ``np.load``'s are; a
+    view shares the buffer, and with it a byte cache's entry, so the
+    decoded arrays are read and never written.  Any other member falls
+    back to ``np.load``."""
+    mv = memoryview(raw).cast("B")
+    out: Dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(_BufferFile(mv)) as zf:
+        infos = zf.infolist()
+    for zi in infos:
+        off = zi.header_offset
+        arr = None
+        if (zi.filename.endswith(".npy") and zi.compress_type == zipfile.ZIP_STORED
+                and not zi.flag_bits & 0x1 and mv[off:off + 4] == b"PK\x03\x04"):
+            start = (off + 30 + int.from_bytes(mv[off + 26:off + 28], "little")
+                     + int.from_bytes(mv[off + 28:off + 30], "little"))
+            data = mv[start:start + zi.file_size]
+            if zlib.crc32(data) != zi.CRC:
+                raise zipfile.BadZipFile(f"Bad CRC-32 for file {zi.filename!r}")
+            arr = _npy_member(data)
+        if arr is None:
+            with np.load(_BufferFile(mv)) as z:
+                return {k: z[k] for k in z.files}
+        out[zi.filename[:-4]] = arr
+    return out
 
 
 class ShardStore:
@@ -184,9 +269,12 @@ class ShardStore:
                 time.sleep(wait)
 
     def read_bytes(self, name: str) -> bytes:
+        return self._read(name, lambda f: f.read())
+
+    def _read(self, name: str, read):
         with trace.span("store.read", key=name) as sp:
             with open(self._path(name), "rb") as f:
-                raw = f.read()
+                raw = read(f)
             sp.set(bytes=len(raw))
             with self._io_lock:
                 self.io.bytes_read += len(raw)
@@ -373,9 +461,20 @@ class ShardStore:
             self.invalidate_shard(shard.shard_id)
         return ell
 
-    def shard_bytes(self, p: int, fmt: str = "csr") -> bytes:
-        """Read the raw (uncompressed) shard container from disk."""
-        return self.read_bytes(self.shard_name(p, fmt))
+    def shard_bytes(self, p: int, fmt: str = "csr") -> memoryview:
+        """Read the raw (uncompressed) shard container from disk, into a
+        writable buffer that the read fills (no copy after it) and the
+        decoders read in place (:func:`_load_npz_bytes`)."""
+        name = self.shard_name(p, fmt)
+
+        def fill(f):
+            buf = np.empty(os.fstat(f.fileno()).st_size, dtype=np.uint8)
+            n = f.readinto(memoryview(buf))
+            if n != buf.size:
+                raise IOError(f"{name}: read {n} of {buf.size} bytes")
+            return memoryview(buf)
+
+        return self._read(name, fill)
 
     def shard_bytes_bulk(self, ps: Sequence[int], fmt: str = "csr") -> Dict[int, bytes]:
         """Read several shard containers in one call."""
@@ -392,7 +491,8 @@ class ShardStore:
         z = _load_npz_bytes(raw)
         v0, v1 = (int(x) for x in z["interval"])
         nv, window, k, tr, nnz, n_ell = (int(x) for x in z["ell_meta"])
-        mask = np.unpackbits(z["mask_bits"], count=n_ell * k).astype(bool)
+        # unpackbits writes only 0 and 1, so its bytes are bools as they are
+        mask = np.unpackbits(z["mask_bits"], count=n_ell * k).view(bool)
         return EllShard(
             shard_id=p, v0=v0, v1=v1, num_vertices=nv, window=window, k=k, tr=tr,
             ell_idx=z["ell_idx"], ell_mask=mask.reshape(n_ell, k), seg=z["seg"],

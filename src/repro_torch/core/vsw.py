@@ -10,7 +10,9 @@ Semantics reproduced exactly:
 - selective scheduling: when the active ratio drops below the threshold
   (paper: 0.001), shards whose Bloom filter matches no active vertex are
   skipped — no disk read, no compute (§II-D-1),
-- compressed edge cache consulted before every disk read (§II-D-2),
+- compressed edge cache consulted before every disk read (§II-D-2), under
+  the reference's LRU policy or the paper's fixed subset
+  (``cache_policy="keep"``, :mod:`repro_torch.core.cache`),
 - termination when an iteration produces zero active vertices.
 
 The engine is a thin orchestrator over three layers (DESIGN.md §3):
@@ -90,7 +92,22 @@ class IterStats:
     kept its vertex arrays on the device (``stage_s`` and ``copy_back_s``
     are then 0); ``ids_to_host`` counts the active ids its plan took on the
     host, 0 where the plan needed only their count; both are attributes of
-    the ``vsw.iter`` span too."""
+    the ``vsw.iter`` span too.
+
+    The loads from the store or the byte cache (the semi-external path)
+    take ``load_total_s``, the prefetch threads' wall time summed; of it,
+    ``read_s`` (the cache's ``get``, and on a miss the store read, span
+    ``shard.read``) and ``decode_s`` (span ``shard.decode``) are the
+    loading threads' CPU time (``time.thread_time``), so waits for the
+    interpreter lock or the disk count in neither.  ``bytes_read +
+    cache_bytes`` is the container bytes of the shards loaded so, and
+    ``to_device_bytes`` the host planes of every shard copied to the
+    device.  A shard served from the resident map counts in none of the
+    four.  A logical decode through a delta overlay counts only in
+    ``to_device_bytes`` (and in ``bytes_read`` where it read the store):
+    while a delta is pending, ``bytes_read + cache_bytes`` leaves out its
+    cache hits.  ``cache_bytes`` and ``to_device_bytes`` are attributes
+    of the ``vsw.iter`` span."""
 
     iteration: int
     time_s: float
@@ -103,6 +120,10 @@ class IterStats:
     active_ratio: float
     selective_on: bool
     load_total_s: float = 0.0  # sum of in-thread load+decode durations
+    read_s: float = 0.0  # thread CPU time of cache gets and store reads
+    decode_s: float = 0.0  # thread CPU time of npz parse and mask unpack
+    cache_bytes: int = 0  # container bytes served by the byte cache
+    to_device_bytes: int = 0  # shard bytes copied host -> device
     load_wait_s: float = 0.0  # critical-path stall waiting on loads
     load_overlap_s: float = 0.0  # load work hidden behind compute
     to_device_s: float = 0.0  # consumer-side host->device shard copies
@@ -163,6 +184,7 @@ class VSWEngine:
         threshold: float = 1e-3,
         cache_bytes: int = 0,
         cache_mode: int = 1,  # 1-4, or 0 = GraphH-style auto-select
+        cache_policy: str = "lru",  # or "keep": the paper's fixed subset
         bloom_fp: float = 0.01,
         exact_selective: bool = False,
         device_resident: bool = False,
@@ -206,7 +228,8 @@ class VSWEngine:
                 for p in range(self.meta.num_shards)
             )
             cache_mode = select_cache_mode(sample, cache_bytes, total)
-        self.cache = ShardCache(cache_bytes, cache_mode) if cache_bytes > 0 else None
+        self.cache = (ShardCache(cache_bytes, cache_mode, cache_policy)
+                      if cache_bytes > 0 else None)
         # Beyond-paper: keep the device copies of ELL shards resident —
         # skips read, decode AND the host->device copy on every revisit.
         self.device_resident = device_resident and backend != "numpy"
@@ -475,7 +498,9 @@ class VSWEngine:
                     # is cancelled+awaited NOW, not at GC.
                     loaded.close()
                 it_sp.set(shards=plan.num_planned, skipped=plan.num_skipped,
-                          on_device=arrays.on_device, ids_to_host=ids_to_host)
+                          on_device=arrays.on_device, ids_to_host=ids_to_host,
+                          cache_bytes=pstats.cache_bytes,
+                          to_device_bytes=pstats.to_device_bytes)
 
             with trace.timed("vsw.activity") as act:
                 arrays.activity(self.scheduler)
@@ -497,6 +522,10 @@ class VSWEngine:
                     active_ratio=arrays.count / max(meta.num_vertices, 1),
                     selective_on=plan.selective_on,
                     load_total_s=pstats.load_total_s,
+                    read_s=pstats.read_s,
+                    decode_s=pstats.decode_s,
+                    cache_bytes=pstats.cache_bytes,
+                    to_device_bytes=pstats.to_device_bytes,
                     load_wait_s=pstats.wait_s,
                     load_overlap_s=pstats.overlap_s,
                     to_device_s=pstats.to_device_s,

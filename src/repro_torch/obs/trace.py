@@ -14,7 +14,8 @@ Span names used by the engine::
 
     vsw.run / vsw.init / vsw.iter / vsw.pre / vsw.apply / vsw.activity /
     vsw.stats / sweep.plan / bloom.build
-    shard.load / shard.next / shard.wait / shard.decode / shard.to_device
+    shard.load / shard.next / shard.wait / shard.read / shard.decode /
+    shard.to_device
     store.read / store.write / cache.get / cache.put
     exec.dispatch / exec.stage / exec.copy_back
     sweep.iter / batch.form / service.admit / service.fusion_set /
